@@ -1,0 +1,20 @@
+"""Device selection: the card by default, the CPU only when asked for."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
+    """Return the torch device to run on.
+
+    ``None`` and ``"cuda"`` mean the card. Asking for a CUDA device when
+    none is present raises: the port never carries on on the CPU unless
+    the caller passed ``"cpu"``.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present; pass device='cpu' to run on the CPU"
+        )
+    return dev

@@ -1,0 +1,89 @@
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports JAX or the reference package, and the CLI
+runs on the CPU when asked and refuses a missing card otherwise."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 12  # every module was reached
+
+
+def test_sources_never_import_jax_or_repro():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))",
+                     re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_cli_runs_on_cpu_and_prints_final_json():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--hdp", "ap",
+         "--scale", "0.01", "--iters", "2", "--topics", "20",
+         "--max-len", "64", "--device", "cpu", "--log-every", "1"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    summary = json.loads(lines[-1])
+    assert summary["corpus"] == "ap" and summary["iters"] == 2
+    assert summary["device"] == "cpu" and summary["tokens"] > 0
+    assert summary["sec_per_iter"] > 0
+    assert sum(line.startswith("{'iter'") for line in lines) == 2
+
+
+def test_cli_without_card_exits_nonzero_with_message():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device runs")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--hdp", "ap",
+         "--scale", "0.01", "--iters", "2", "--topics", "20",
+         "--max-len", "64"],
+        env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "no CUDA device is present" in out.stderr
+    assert "{" not in out.stdout  # no result was printed
+
+
+def test_resolve_device_defaults_to_cuda_and_honours_cpu():
+    from repro_torch.device import resolve_device
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device()
