@@ -18,7 +18,10 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      flag topic is empty and the kernel's launch count rose by 1;
   4. one sweep at the main path's shape from the trained state: kernel
      against plain version (bitwise), both timed with CUDA events, with
-     the bound the card's memory rate and float32 rate set.
+     the bound the card's memory rate and float32 rate set; then the
+     whole z-step (table or support build plus sweep) with the alias
+     built in the kernel and with tables built first, bitwise equal and
+     both timed.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -153,15 +156,21 @@ def cuda_time_ms(fn, reps: int) -> float:
 
 
 def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit):
-    """Least time for one sweep: each input byte read once and each
-    output byte written once over the memory rate, against the float32
-    work every live token needs (W products, W prefix adds, W compares;
-    prologue mode also W products and 2W adds for wa, q_a and the
-    normalisation total) over the float32 rate."""
-    nbytes = d * l * (4 + 4 + 4 + 1 + 12) + d * kk * 4
+    """Least time for one sweep: each byte the sweep needs read once and
+    each output byte written once over the memory rate, against the
+    float32 work every live token needs whichever branch it takes over
+    the float32 rate.
+
+    Bytes: mask, z in and z out over all D*L positions (padding keeps its
+    z); tokens and uniforms only at the ``live`` positions; m (D, K); the
+    supports and apsi, or the tables and q_a, over their full shapes; dn
+    (K, V) with emit. Operations per live token: W products and W prefix
+    adds for term (b); prologue mode also W products and W adds for wa
+    and q_a."""
+    nbytes = d * l * (1 + 4 + 4) + live * (4 + 12) + d * kk * 4
     nbytes += (vv * w * 8 + kk * 4) if in_kernel else (vv * 4 + vv * w * 16)
     nbytes += kk * vv * 4 if emit else 0
-    ops = live * w * (6 if in_kernel else 3)
+    ops = live * w * (4 if in_kernel else 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -232,8 +241,8 @@ def main() -> int:
     d, l = tokens.shape
     print(f"[3] main path: D={d} L={l} V={cfg.V} K={cfg.K} W={cfg.bucket} "
           f"tokens={live}; {summary['sec_per_iter']} s/iter, "
-          f"{summary['tokens_per_s']} tok/s (with the log-likelihood and "
-          f"these checks each iteration); log_lik {history[-1]['log_lik']}; "
+          f"{summary['tokens_per_s']} tok/s (Gibbs iterations alone, "
+          f"iteration 1 included); log_lik {history[-1]['log_lik']}; "
           f"active topics {active}; kernel launches {main_launches}",
           flush=True)
 
@@ -284,6 +293,21 @@ def main() -> int:
               f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms ({by}); "
               f"changed tokens {changed} of {live}", flush=True)
 
+    # The whole z-step of one iteration in either mode: supports and
+    # prologue sweep, or tables (sort, alias build, q_a) and table sweep.
+    z_step_ms, z_step_out = {}, {}
+    for mode in ("on", "off"):
+        def z_step():
+            return zops.z_step_cuda(tokens, mask, state.z, phi, psi, cfg.alpha, u,
+                                    cfg.bucket, emit_delta=True, alias_in_kernel=mode)
+        z_step_out[mode] = z_step()
+        z_step_ms[mode] = cuda_time_ms(z_step, 3)
+    for name, a, b in zip(("z", "m", "dn"), z_step_out["on"], z_step_out["off"]):
+        check(torch.equal(a, b), f"z_step alias_in_kernel on/off: {name} differs")
+    print(f"[4] z_step at main shape, emit_delta: alias in kernel "
+          f"{z_step_ms['on']:.3f} ms, tables built first {z_step_ms['off']:.3f} ms; "
+          f"bitwise equal", flush=True)
+
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
@@ -294,6 +318,8 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "other_inputs": {k: v for k, v in timing.items() if k != "prologue"},
+        "z_step_ms": {"alias_in_kernel": z_step_ms["on"],
+                      "tables_built_first": z_step_ms["off"]},
     }]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

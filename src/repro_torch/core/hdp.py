@@ -193,7 +193,7 @@ def init_state(gen: torch.Generator, tokens, mask, cfg: HDPConfig) -> HDPState:
         phi, varphi = ppu_sample_budgeted(gen, n, cfg.beta, cfg.ppu_nnz_budget)
     else:
         phi, varphi = ppu_sample(gen, n, cfg.beta)
-    psi = gem_prior_sample(gen, cfg.K, cfg.gamma, device=tokens.device)
+    psi = gem_prior_sample(gen, cfg.K, cfg.gamma)
     return HDPState(
         z=z, n=n, phi=phi, varphi=varphi, psi=psi,
         l=torch.zeros((cfg.K,), dtype=torch.int32, device=tokens.device),

@@ -69,10 +69,9 @@ def sample_psi(gen: torch.Generator, l: torch.Tensor, gamma: float) -> torch.Ten
     return _fgem(sigma)
 
 
-def gem_prior_sample(
-    gen: torch.Generator, k: int, gamma: float, device: torch.device | str = "cpu",
-) -> torch.Tensor:
-    """Draw Psi ~ FGEM(gamma, K) from the prior (for initialization)."""
-    ones = torch.ones((k,), device=device)
-    sigma = _beta(gen, ones, torch.full((k,), float(gamma), device=device))
+def gem_prior_sample(gen: torch.Generator, k: int, gamma: float) -> torch.Tensor:
+    """Draw Psi ~ FGEM(gamma, K) from the prior (for initialization), on
+    the generator's device."""
+    ones = torch.ones((k,), device=gen.device)
+    sigma = _beta(gen, ones, torch.full((k,), float(gamma), device=gen.device))
     return _fgem(sigma)

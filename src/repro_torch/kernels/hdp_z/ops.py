@@ -25,10 +25,11 @@ def resolve_alias_in_kernel(
     """Whether the alias entries are built in the kernel (prologue mode).
 
     An explicit ``"on"``/``"off"`` (or bool) wins; ``"auto"`` (or None)
-    is on exactly for CUDA tensors, where skipping the (V, 2, W) table
-    build and its round trip through device memory pays, and off for CPU
-    tensors. Prologue mode reads raw f32 supports, so an explicit "on"
-    with compact tables raises and "auto" with them resolves to off.
+    is on exactly for CUDA tensors and off for CPU tensors, as the JAX
+    counterpart is on exactly when its kernel is compiled. Both modes
+    give bitwise the same sweep; PERF.md holds the z-step times of each
+    on the card. Prologue mode reads raw f32 supports, so an explicit
+    "on" with compact tables raises and "auto" with them resolves to off.
     """
     if explicit not in (None, True, False, "auto", "on", "off"):
         raise ValueError(f"unknown alias_in_kernel mode {explicit!r}")

@@ -135,6 +135,7 @@ def test_sample_psi_posterior_beta_moments():
 
 def test_gem_prior_decays_and_matches_reference_mean():
     g = gen(7)
+    assert TS.gem_prior_sample(g, 8, 1.0).device == g.device
     port = np.stack([TS.gem_prior_sample(g, 64, 1.0).numpy() for _ in range(300)])
     assert np.allclose(port.sum(1), 1.0, atol=1e-5)
     mean = port.mean(0)
