@@ -5,7 +5,8 @@
 
 Phases, none wrapped in a ``try``; any failure exits non-zero:
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
-     hdp_z kernel built from ``src/repro_torch/kernels/hdp_z/csrc``;
+     three kernels (hdp_z, flash_attention, ssd_chunk) built from their
+     ``csrc`` sources, one nvcc each, all started together;
   2. kernel against plain version on the card: every variant of
      emit_delta x prologue (in-kernel alias) mode at K in {2, 3, 257,
      1000} and W in {8, 33, 64, 256}, odd D, ragged masked padding and
@@ -21,7 +22,29 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      the bound the card's memory rate and float32 rate set; then the
      whole z-step (table or support build plus sweep) with the alias
      built in the kernel and with tables built first, bitwise equal and
-     both timed.
+     both timed;
+  5. flash attention and the SSD intra-chunk kernel against their plain
+     versions on the card, in the working dtype, float32 products in
+     full float32 (no TF32): attention at hymba's prefill shape (B=4,
+     S=512, 25/5 heads, D=64, window 2048) in bf16 and float32, at
+     S=4096 with window 2048, at ragged S=300 with a window larger than
+     S, non-causal, group 1 and D in {16, 128} (atol 3e-2 bf16, 2e-5
+     float32, those of tests/test_flash_attention.py); SSD at B=2,
+     S=1024, H=50, P=64, N=16, chunk 128 with B and C shared by all heads
+     (stride 0, as the model passes them) and at one odd shape (atol
+     2e-4, that of tests/test_ssd.py);
+  6. the LM main path: ``repro_torch.launch.serve`` serves hymba-1.5b at
+     full width (32 layers, d_model 1600, bf16 weights from a seed): 8
+     requests of 512 tokens in batches of 4, 32 greedy tokens each; every
+     logit finite, and each LM kernel launched 32 layers x 2 batches
+     times. Then prefill/decode consistency in float32 at full width and
+     depth 4: decode logits after a prefill of S against the last
+     logits of a prefill of S + 1;
+  7. the LM kernels timed at the serving shape by CUDA events over
+     back-to-back calls (beside the host time of one call), against
+     their plain versions, their bound, and for attention
+     ``F.scaled_dot_product_attention`` on the same inputs (timed only;
+     the port never calls it).
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -43,19 +66,45 @@ import torch  # noqa: E402
 
 # Without the repository's sources beside this script, these fail and
 # the script exits non-zero before any phase.
+import dataclasses  # noqa: E402
+
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import hdp as H  # noqa: E402
 from repro_torch.core.polya_urn import ppu_sample  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.hdp_z import hdp_z as HZ  # noqa: E402
 from repro_torch.kernels.hdp_z import ops as zops  # noqa: E402
 from repro_torch.kernels.hdp_z.hdp_z import hdp_z_cuda  # noqa: E402
 from repro_torch.kernels.hdp_z.ref import (  # noqa: E402
     hdp_z_ref, hdp_z_ref_prologue)
+from repro_torch.kernels.ssd import ssd as SSD  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
+from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
+from repro_torch.models.lm import CausalLM  # noqa: E402
 
-# H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor) peak.
+# H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak and
+# dense bf16 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+# hymba-1.5b serving on the main path (phase 6): batch, prompt, heads
+SERVE_B, SERVE_S = 4, 512
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SSD_ATOL = 2e-4
+# float32 prefill/decode consistency at full width, depth 4 (phase 6):
+# the largest |decode logit - prefill(S+1) logit| allowed. The two take
+# different float32 sum orders (chunked SSD against the one-step
+# recurrence, online against dense softmax, cuBLAS products of 1 row
+# against 513): measured 1.47e-4 at logits up to 327 (chip run, NVIDIA
+# H100 80GB HBM3, 700.00 W), a few float32 ulps of the largest logit;
+# 1e-3 leaves about 7x that and is still 3e-6 of the logits' scale.
+CONSISTENCY_ATOL = 1e-3
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -155,6 +204,19 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_time_ms(fn, reps: int) -> float:
+    """Host time of one call of ``fn`` (its launch, not its run), over
+    ``reps`` calls after a synchronize: when it is near cuda_time_ms's
+    figure, the launches, not the kernel, set that figure."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit):
     """Least time for one sweep: each byte the sweep needs read once and
     each output byte written once over the memory rate, against the
@@ -176,6 +238,101 @@ def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_ms(nbytes: float, ops: float, ops_per_s: float):
+    """The larger of bytes over the memory rate and operations over the
+    peak rate for their type, in ms, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_pairs(s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs of one head that the causal mask and the window
+    leave."""
+    qpos = np.arange(s)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(s, np.int64)
+    hi = qpos if causal else np.full(s, s - 1)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_bound_ms(b, hq, hkv, s, d, itemsize, causal, window):
+    """q and out (B, Hq, S, D), k and v (B, Hkv, S, D), each moved once;
+    4 D operations (q.k and p.v multiply-adds) per unmasked pair at the
+    tensor-core peak of the input type (bf16) or the float32 peak."""
+    nbytes = 2 * (b * hq + b * hkv) * s * d * itemsize
+    ops = 4 * d * b * hq * attention_pairs(s, causal, window)
+    return bound_ms(nbytes, ops, BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S)
+
+
+def ssd_bound_ms(b, s, h, p, n, cl):
+    """x in and y out (B, S, H, P), dt in and dec out (B, S, H), a (H,),
+    B and C (B, S, N) shared by the heads, the states out (B, NC, H, N, P),
+    all float32 and moved once; per (batch, chunk, head) and pair i >= j
+    2N for C.B, 3 for the decay and its product, 2P for y; per row 2NP
+    for the state, P for x dt and N + 5 for the decays; at the float32
+    peak."""
+    nc = s // cl
+    nbytes = 4 * (2 * b * s * h * p + 2 * b * s * h + h + 2 * b * s * n
+                  + b * nc * h * n * p)
+    pairs = cl * (cl + 1) // 2
+    ops = b * nc * h * (pairs * (2 * n + 3 + 2 * p) + cl * (2 * n * p + p + n + 5))
+    return bound_ms(nbytes, ops, FP32_OPS_PER_S)
+
+
+def flash_inputs(gen, b, hq, hkv, s, d, dtype):
+    """q (B, Hq, S, D) and k, v (B, Hkv, S, D) as transposed views of
+    (B, S, H, D) tensors, as the model passes its projections."""
+    def one(h):
+        return torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    return one(hq), one(hkv), one(hkv)
+
+
+def check_flash(gen, b, hq, hkv, s, d, dtype, causal, window) -> float:
+    q, k, v = flash_inputs(gen, b, hq, hkv, s, d, dtype)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    err = float((got.float() - want.float()).abs().max())
+    tag = (f"flash B={b} Hq={hq} Hkv={hkv} S={s} D={d} {dtype} "
+           f"causal={causal} window={window}")
+    check(FA.flash_attention.launches == before + 1, f"{tag}: no launch")
+    check(got.dtype == dtype and got.shape == want.shape, f"{tag}: dtype/shape")
+    check(err <= FLASH_ATOL[dtype], f"{tag}: max error {err} > {FLASH_ATOL[dtype]}")
+    print(f"[5] {tag}: max |kernel - plain| {err:.3g}", flush=True)
+    return err
+
+
+def ssd_inputs(gen, b, s, h, p, n):
+    """x, dt, a as in tests/test_ssd.py; B and C (B, S, N) shared by
+    the heads, as stride-0 views, as the model passes them."""
+    dev = "cuda"
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.19 + 0.01
+    a = -(torch.rand((h,), generator=gen, device=dev) * 1.5 + 0.5)
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=dev)[:, :, None, :]
+              .expand(b, s, h, n) for _ in range(2))
+    return x, dt, a, bm, cm
+
+
+def check_ssd(gen, b, s, h, p, n, cl) -> float:
+    args = ssd_inputs(gen, b, s, h, p, n)
+    before = SSD.ssd_intra_chunk.launches
+    got = SSD.ssd_intra_chunk(*args, chunk=cl)
+    torch.cuda.synchronize()
+    want = ssd_intra_chunk_ref(*args, chunk=cl)
+    tag = f"ssd B={b} S={s} H={h} P={p} N={n} chunk={cl}"
+    check(SSD.ssd_intra_chunk.launches == before + 1, f"{tag}: no launch")
+    err = 0.0
+    for name, a, w in zip(("y", "st", "dec"), got, want):
+        check(a.shape == w.shape, f"{tag}: {name} shape")
+        e = float((a - w).abs().max())
+        check(e <= SSD_ATOL, f"{tag}: {name} max error {e} > {SSD_ATOL}")
+        err = max(err, e)
+    print(f"[5] {tag}: max |kernel - plain| {err:.3g} over y, st, dec", flush=True)
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -188,11 +345,14 @@ def main() -> int:
     print(f"[1] card: {card}", flush=True)
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    lib_path = _build.build(HZ.SOURCE)
-    print(f"[1] built {lib_path.name} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.BUILD_SECONDS.get(HZ.SOURCE.name, 0.0):.2f} s)",
-          flush=True)
+    sources = [HZ.SOURCE, FA.SOURCE, SSD.SOURCE]
+    paths = _build.build_all(sources)
+    print(f"[1] built {', '.join(p.name for p in paths)} in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
+              f"{src.name} {_build.BUILD_SECONDS.get(src.name, 0.0):.2f} s"
+              for src in sources) + ")", flush=True)
 
     # ---- 2. kernel against plain version, small shapes -----------------
     rng = np.random.default_rng(0)
@@ -308,6 +468,112 @@ def main() -> int:
           f"{z_step_ms['on']:.3f} ms, tables built first {z_step_ms['off']:.3f} ms; "
           f"bitwise equal", flush=True)
 
+    # ---- 5. LM kernels against their plain versions ----------------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    lm_cfg = get_config("hymba-1.5b")
+    hq, hkv, hd, win = (lm_cfg.num_heads, lm_cfg.num_kv_heads, lm_cfg.head_dim,
+                        lm_cfg.window)
+    fa_err = max(check_flash(gen, *case) for case in (
+        (SERVE_B, hq, hkv, SERVE_S, hd, bf16, True, win),   # prefill shape
+        (SERVE_B, hq, hkv, SERVE_S, hd, f32, True, win),
+        (1, hq, hkv, 4096, hd, bf16, True, win),            # window bites
+        (1, hq, hkv, 300, hd, bf16, True, win),             # ragged S < window
+        (2, 8, 2, 300, hd, f32, True, 1000),
+        (2, 4, 4, 300, 32, f32, False, None),               # non-causal, group 1
+        (1, 4, 4, 256, 128, f32, True, 48),                 # group 1, D=128
+        (2, 4, 2, 64, 16, f32, True, None),
+    ))
+    n_ssd = lm_cfg.ssm_state
+    h_ssd = lm_cfg.ssm_expand * lm_cfg.d_model // lm_cfg.ssm_head_dim
+    ssd_err = max(check_ssd(gen, *case) for case in (
+        (2, 1024, h_ssd, lm_cfg.ssm_head_dim, n_ssd, lm_cfg.ssd_chunk),
+        (1, 200, 3, 24, 12, 40),                              # odd shape
+    ))
+
+    # ---- 6. LM main path: hymba-1.5b serving at full width --------------
+    serve_args = SV.build_parser().parse_args([
+        "--arch", "hymba-1.5b", "--requests", "8", "--batch", str(SERVE_B),
+        "--prompt-len", str(SERVE_S), "--gen", "32", "--seed", "0"])
+    FA.flash_attention.launches = 0
+    SSD.ssd_intra_chunk.launches = 0
+    outputs, served = SV.serve(serve_args)
+    fa_launches = FA.flash_attention.launches
+    ssd_launches = SSD.ssd_intra_chunk.launches
+    want_launches = lm_cfg.num_layers * 2  # layers x batches
+    check(fa_launches == want_launches and ssd_launches == want_launches,
+          f"serve: flash {fa_launches}, ssd {ssd_launches} launches, "
+          f"expected {want_launches} each")
+    check(served["logits_finite"], "serve: a logit is not finite")
+    check(len(outputs) == 8 and all(len(o) == 32 for o in outputs),
+          "serve: not 8 requests of 32 tokens")
+    check(all(0 <= t < lm_cfg.vocab_size for o in outputs for t in o),
+          "serve: a token outside the vocabulary")
+    print(f"[6] served hymba-1.5b (32 layers, d_model 1600, bf16): 8 requests, "
+          f"batch {SERVE_B}, prompt {SERVE_S}, gen 32; prefill "
+          f"{served['prefill_tok_s']} tok/s, decode {served['decode_tok_s']} "
+          f"tok/s; launches flash {fa_launches}, ssd {ssd_launches}", flush=True)
+
+    cfg32 = dataclasses.replace(lm_cfg, num_layers=4, param_dtype="float32",
+                                compute_dtype="float32")
+    with torch.inference_mode():
+        model = CausalLM(cfg32, torch.Generator(device=dev).manual_seed(1))
+        toks = torch.randint(0, cfg32.vocab_size, (2, SERVE_S + 1), generator=gen,
+                             device=dev)
+        _, cache = model.prefill(toks[:, :SERVE_S], SERVE_S + 1)
+        dec_logits, _ = model.decode_step(toks[:, SERVE_S], cache, SERVE_S)
+        full_logits, _ = model.prefill(toks, SERVE_S + 1)
+    del model, cache
+    cons_err = float((dec_logits - full_logits).abs().max())
+    cons_scale = float(full_logits.abs().max())
+    check(bool(torch.isfinite(dec_logits).all()), "consistency: non-finite logits")
+    check(cons_err <= CONSISTENCY_ATOL,
+          f"consistency: max |decode - prefill(S+1)| {cons_err} > {CONSISTENCY_ATOL}")
+    print(f"[6] float32, full width, depth 4: max |decode logits - prefill(S+1) "
+          f"logits| = {cons_err} (largest |logit| {cons_scale}; atol "
+          f"{CONSISTENCY_ATOL})", flush=True)
+
+    # ---- 7. LM kernels timed at the serving shape -----------------------
+    q, k, v = flash_inputs(gen, SERVE_B, hq, hkv, SERVE_S, hd, bf16)
+    fa_out = FA.flash_attention(q, k, v, causal=True, window=win)
+    lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+    # window 2048 > S = 512, so causal attention is the same function
+    lib_err = float((fa_out.float() - lib_out.float()).abs().max())
+    check(lib_err <= FLASH_ATOL[bf16], f"SDPA differs from the kernel by {lib_err}")
+    fa_t = dict(
+        ms=cuda_time_ms(lambda: FA.flash_attention(q, k, v, causal=True, window=win), 20),
+        plain_ms=cuda_time_ms(lambda: attention_ref(q, k, v, causal=True, window=win), 5),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
+        host_ms=host_time_ms(lambda: FA.flash_attention(q, k, v, causal=True, window=win), 20))
+    fa_t["bound_ms"], fa_t["bound_by"] = flash_bound_ms(
+        SERVE_B, hq, hkv, SERVE_S, hd, 2, True, win)
+    print(f"[7] flash_attention B={SERVE_B} S={SERVE_S} {hq}/{hkv} heads D={hd} "
+          f"bf16: kernel {fa_t['ms']:.4f} ms (host {fa_t['host_ms']:.4f} ms a call), plain {fa_t['plain_ms']:.4f} ms, "
+          f"SDPA {fa_t['library_ms']:.4f} ms, bound {fa_t['bound_ms']:.4f} ms "
+          f"({fa_t['bound_by']})", flush=True)
+
+    cl = lm_cfg.ssd_chunk
+    sargs = ssd_inputs(gen, SERVE_B, SERVE_S, h_ssd, lm_cfg.ssm_head_dim, n_ssd)
+    got = SSD.ssd_intra_chunk(*sargs, chunk=cl)
+    want = ssd_intra_chunk_ref(*sargs, chunk=cl)
+    for name, a, w in zip(("y", "st", "dec"), got, want):
+        e = float((a - w).abs().max())
+        check(e <= SSD_ATOL, f"ssd at the serving shape: {name} max error {e}")
+        ssd_err = max(ssd_err, e)
+    ssd_t = dict(
+        ms=cuda_time_ms(lambda: SSD.ssd_intra_chunk(*sargs, chunk=cl), 20),
+        plain_ms=cuda_time_ms(lambda: ssd_intra_chunk_ref(*sargs, chunk=cl), 5),
+        library_ms=None,
+        host_ms=host_time_ms(lambda: SSD.ssd_intra_chunk(*sargs, chunk=cl), 20))
+    ssd_t["bound_ms"], ssd_t["bound_by"] = ssd_bound_ms(
+        SERVE_B, SERVE_S, h_ssd, lm_cfg.ssm_head_dim, n_ssd, cl)
+    print(f"[7] ssd_chunk B={SERVE_B} S={SERVE_S} H={h_ssd} P={lm_cfg.ssm_head_dim} "
+          f"N={n_ssd} chunk={cl}: kernel {ssd_t['ms']:.4f} ms (host "
+          f"{ssd_t['host_ms']:.4f} ms a call), plain {ssd_t['plain_ms']:.4f} ms, "
+          f"bound {ssd_t['bound_ms']:.4f} ms ({ssd_t['bound_by']})", flush=True)
+
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
@@ -320,7 +586,21 @@ def main() -> int:
         "other_inputs": {k: v for k, v in timing.items() if k != "prologue"},
         "z_step_ms": {"alias_in_kernel": z_step_ms["on"],
                       "tables_built_first": z_step_ms["off"]},
-    }]}), flush=True)
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
+        "launches": fa_launches, "max_abs_err": fa_err, **fa_t,
+        "shape": f"B={SERVE_B} S={SERVE_S} Hq={hq} Hkv={hkv} D={hd} bf16 causal window={win}",
+    }, {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:31",
+        "launches": ssd_launches, "max_abs_err": ssd_err, **ssd_t,
+        "shape": f"B={SERVE_B} S={SERVE_S} H={h_ssd} P={lm_cfg.ssm_head_dim} N={n_ssd} chunk={cl} f32",
+    }], "serve": {k: served[k] for k in ("prefill_tok_s", "decode_tok_s")},
+        "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale}}),
+        flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

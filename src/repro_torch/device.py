@@ -18,3 +18,9 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
             "no CUDA device is present; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

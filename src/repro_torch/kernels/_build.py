@@ -17,12 +17,15 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Iterable
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no multiply-add contraction: the kernels match their plain
-    # versions bit for bit (never --use_fast_math)
+    # no multiply-add contraction, so that hdp_z matches its plain
+    # version bit for bit (never --use_fast_math); the LM kernels are
+    # held to their plain versions within stated tolerances
     "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
@@ -79,8 +82,17 @@ def build(source: Path) -> Path:
     return out
 
 
+def build_all(sources: Iterable[Path]) -> list[Path]:
+    """Build several sources at once, one ``nvcc`` each, all started
+    together; raises the first build's error."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(build, sources))
+
+
 def load(source: Path) -> ctypes.CDLL:
-    """Build if needed, then load once per process."""
+    """Build if needed, then load once per process: later calls return
+    the loaded library without reading the source again."""
     key = str(Path(source).resolve())
     lib = _LOADED.get(key)
     if lib is None:

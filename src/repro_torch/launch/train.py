@@ -20,14 +20,9 @@ import torch
 
 from repro_torch.core import hdp as H
 from repro_torch.data.synthetic import paper_corpus
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import _build
-from repro_torch.kernels.hdp_z.hdp_z import SOURCE as hdp_z_source
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from repro_torch.kernels.hdp_z import hdp_z as HZ
 
 
 def prepare_hdp(args: argparse.Namespace):
@@ -44,7 +39,7 @@ def prepare_hdp(args: argparse.Namespace):
     tokens = torch.from_numpy(corpus.tokens).to(device)
     mask = torch.from_numpy(corpus.mask).to(device)
     state = H.init_state(H.make_generator(args.seed, device), tokens, mask, cfg)
-    _sync(device)
+    synchronize(device)
     return corpus, cfg, tokens, mask, state
 
 
@@ -66,15 +61,15 @@ def train_hdp(
     corpus, cfg, tokens, mask, state = prepare_hdp(args)
     device = tokens.device
     if device.type == "cuda" and cfg.z_impl == "cuda":
-        _build.build(hdp_z_source)
+        _build.build(HZ.SOURCE)
 
     history = []
     dt = 0.0
     for i in range(args.iters):
-        _sync(device)
+        synchronize(device)
         t0 = time.perf_counter()
         state = H.gibbs_iteration(state, tokens, mask, cfg)
-        _sync(device)
+        synchronize(device)
         dt += time.perf_counter() - t0
         if (i + 1) % args.log_every == 0:
             ll = float(H.log_marginal_likelihood(state, tokens, mask, cfg))

@@ -1,0 +1,128 @@
+"""The port's attention against the reference's flash attention.
+
+On this CPU the wrapper ``flash_attention`` runs its plain version
+(``attention_ref``); the CUDA kernel is held against that plain version
+on the card by ``chip_smoke.py``. Inputs come from numpy seeds and reach
+both frameworks as the same arrays (bf16 inputs are rounded from the
+same float32 values on both sides). Tolerances are those of
+``tests/test_flash_attention.py``: 2e-5 in float32, 3e-2 in bf16.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention as jax_flash)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    attention_chunked as jax_chunked, attention_ref as jax_ref)
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention)
+from repro_torch.kernels.flash_attention.ops import mha  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_chunked, attention_ref)
+
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def mk(seed, b, hq, hkv, s, d, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, tx
+
+
+def close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=ATOL[dtype], rtol=0)
+
+
+# -- against the reference's Pallas kernel (interpret mode) --------------------
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,bq,bk,causal,window,dtype", [
+    # the parameter sets of tests/test_flash_attention.py
+    (2, 4, 2, 64, 32, 32, 32, True, None, "float32"),
+    (1, 8, 1, 128, 64, 64, 32, True, None, "float32"),
+    (2, 4, 4, 64, 32, 16, 64, True, None, "float32"),
+    (1, 2, 2, 96, 16, 32, 32, True, None, "float32"),
+    (1, 4, 2, 64, 32, 32, 32, True, None, "bfloat16"),
+    (1, 4, 2, 128, 32, 32, 32, True, 16, "float32"),
+    (1, 4, 2, 128, 32, 32, 32, True, 48, "float32"),
+    (1, 4, 2, 128, 32, 32, 32, True, 128, "float32"),
+    (1, 2, 2, 64, 32, 32, 32, False, None, "float32"),
+    # hymba's grouping (group 5) with a window, both dtypes
+    (1, 10, 2, 64, 64, 32, 32, True, 48, "float32"),
+    (1, 10, 2, 64, 64, 32, 32, True, 48, "bfloat16"),
+])
+def test_plain_version_matches_reference_kernel(b, hq, hkv, s, d, bq, bk,
+                                                causal, window, dtype):
+    jx, tx = mk(s + d + hq, b, hq, hkv, s, d, dtype)
+    want = jax_flash(*jx, causal=causal, window=window, block_q=bq,
+                     block_k=bk, interpret=True)
+    got = flash_attention(*tx, causal=causal, window=window)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    close(got, want, dtype)
+
+
+# -- against the reference's dense oracle: shapes the Pallas kernel refuses ----
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window,dtype", [
+    (1, 10, 2, 37, 16, True, None, "float32"),    # ragged S, group 5
+    (2, 25, 5, 50, 64, True, 16, "bfloat16"),     # hymba heads, window
+    (1, 4, 2, 77, 32, True, 300, "float32"),      # window larger than S
+    (1, 4, 4, 45, 32, False, None, "float32"),    # non-causal, group 1
+    (1, 4, 2, 45, 32, False, 8, "float32"),       # non-causal window
+    (1, 6, 3, 1, 16, True, None, "bfloat16"),     # a single position
+])
+def test_plain_version_matches_reference_oracle(b, hq, hkv, s, d, causal,
+                                                window, dtype):
+    jx, tx = mk(s * 7 + d, b, hq, hkv, s, d, dtype)
+    want = jax_ref(*jx, causal=causal, window=window)
+    close(attention_ref(*tx, causal=causal, window=window), want, dtype)
+    close(mha(*tx, causal=causal, window=window), want, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_chunked_matches_reference(window):
+    jx, tx = mk(3, 2, 4, 2, 256, 32)
+    want = jax_chunked(*jx, causal=True, window=window, q_chunk=64)
+    close(attention_chunked(*tx, causal=True, window=window, q_chunk=64),
+          want, "float32")
+    close(attention_chunked(*tx, causal=True, window=window, q_chunk=64),
+          jax_ref(*jx, causal=True, window=window), "float32")
+
+
+def test_strided_views_give_the_same_result():
+    """The model hands (B, S, H, D) projections over as transposed views."""
+    _, (q, k, v) = mk(5, 2, 6, 3, 40, 16)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(flash_attention(*views, window=9),
+                               flash_attention(q, k, v, window=9), rtol=0, atol=0)
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    _, tx = mk(7, 1, 4, 2, 33, 16)
+    before = flash_attention.launches
+    out = mha(*tx, causal=True, window=None)
+    torch.testing.assert_close(out, attention_ref(*tx), rtol=0, atol=0)
+    assert flash_attention.launches == before == 0
+
+
+@pytest.mark.parametrize("bad", ["heads", "dtype", "window"])
+def test_wrapper_refuses_malformed_inputs(bad):
+    _, (q, k, v) = mk(9, 1, 4, 2, 16, 16)
+    kwargs = {}
+    if bad == "heads":
+        q = q[:, :3]
+    elif bad == "dtype":
+        k = k.double()
+    else:
+        kwargs["window"] = 0
+    with pytest.raises((ValueError, TypeError)):
+        flash_attention(q, k, v, **kwargs)

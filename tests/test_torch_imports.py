@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the reference package, and the CLI
-runs on the CPU when asked and refuses a missing card otherwise."""
+``chip_smoke.py``) imports JAX or the reference package, and the CLIs
+run on the CPU when asked and refuse a missing card otherwise."""
 
 import json
 import os
@@ -38,7 +38,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12  # every module was reached
+    assert int(out.stdout.strip()) >= 41  # every module was reached
 
 
 def test_sources_never_import_jax_or_repro():
@@ -74,6 +74,32 @@ def test_cli_without_card_exits_nonzero_with_message():
          "--max-len", "64"],
         env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert out.returncode != 0
+    assert "no CUDA device is present" in out.stderr
+    assert "{" not in out.stdout  # no result was printed
+
+
+SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "hymba-1.5b", "--smoke", "--requests", "3", "--batch", "2",
+         "--prompt-len", "8", "--gen", "4"]
+
+
+def test_serve_cli_runs_on_cpu_and_prints_final_json():
+    out = subprocess.run(SERVE + ["--device", "cpu"], env=_env(),
+                         capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["arch"] == "hymba-1.5b" and summary["device"] == "cpu"
+    assert summary["batches"] == 2 and summary["logits_finite"]
+    assert summary["prefill_tok_s"] > 0 and summary["decode_tok_s"] > 0
+    assert len(summary["sample_output"]) == 4
+
+
+def test_serve_cli_without_card_exits_1_with_message():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device runs")
+    out = subprocess.run(SERVE, env=_env(), capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode == 1
     assert "no CUDA device is present" in out.stderr
     assert "{" not in out.stdout  # no result was printed
 
