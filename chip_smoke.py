@@ -37,14 +37,17 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      full width (32 layers, d_model 1600, bf16 weights from a seed): 8
      requests of 512 tokens in batches of 4, 32 greedy tokens each; every
      logit finite, and each LM kernel launched 32 layers x 2 batches
-     times. Then prefill/decode consistency in float32 at full width and
-     depth 4: decode logits after a prefill of S against the last
-     logits of a prefill of S + 1;
+     times. Then the serving rates: 1 warm-up batch off the clock and 5
+     timed batches, each batch's prefill and decode tok/s listed with
+     their spread. Then prefill/decode consistency in float32 at full
+     width and depth 4: decode logits after a prefill of S against the
+     last logits of a prefill of S + 1;
   7. the LM kernels timed at the serving shape by CUDA events over
      back-to-back calls (beside the host time of one call), against
      their plain versions, their bound, and for attention
      ``F.scaled_dot_product_attention`` on the same inputs (timed only;
-     the port never calls it).
+     the port never calls it); SSD also on dt and A as the model at
+     init feeds them, held to its plain version there too.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -95,6 +98,8 @@ BF16_OPS_PER_S = 989e12
 
 # hymba-1.5b serving on the main path (phase 6): batch, prompt, heads
 SERVE_B, SERVE_S = 4, 512
+# timed batches of the serving-rate run (phase 6), after one warm-up
+RATE_BATCHES = 5
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SSD_ATOL = 2e-4
 # float32 prefill/decode consistency at full width, depth 4 (phase 6):
@@ -510,9 +515,25 @@ def main() -> int:
     check(all(0 <= t < lm_cfg.vocab_size for o in outputs for t in o),
           "serve: a token outside the vocabulary")
     print(f"[6] served hymba-1.5b (32 layers, d_model 1600, bf16): 8 requests, "
-          f"batch {SERVE_B}, prompt {SERVE_S}, gen 32; prefill "
-          f"{served['prefill_tok_s']} tok/s, decode {served['decode_tok_s']} "
-          f"tok/s; launches flash {fa_launches}, ssd {ssd_launches}", flush=True)
+          f"batch {SERVE_B}, prompt {SERVE_S}, gen 32; launches flash "
+          f"{fa_launches}, ssd {ssd_launches}", flush=True)
+
+    # The serving rates: one warm-up batch off the clock, then
+    # RATE_BATCHES timed batches, each batch's rate listed.
+    rate_args = SV.build_parser().parse_args([
+        "--arch", "hymba-1.5b", "--requests", str(SERVE_B * (1 + RATE_BATCHES)),
+        "--batch", str(SERVE_B), "--prompt-len", str(SERVE_S), "--gen", "32",
+        "--seed", "0"])
+    _, rates = SV.serve(rate_args)
+    check(rates["logits_finite"], "serve rates: a logit is not finite")
+    spread = {k: (max(v) - min(v)) / (sum(v) / len(v)) for k, v in (
+        ("prefill", rates["prefill_tok_s_per_batch"]),
+        ("decode", rates["decode_tok_s_per_batch"]))}
+    print(f"[6] rates over {RATE_BATCHES} batches after 1 warm-up batch: prefill "
+          f"{rates['prefill_tok_s']} tok/s (per batch {rates['prefill_tok_s_per_batch']}, "
+          f"spread {spread['prefill']:.1%}), decode {rates['decode_tok_s']} tok/s "
+          f"(per batch {rates['decode_tok_s_per_batch']}, spread "
+          f"{spread['decode']:.1%})", flush=True)
 
     cfg32 = dataclasses.replace(lm_cfg, num_layers=4, param_dtype="float32",
                                 compute_dtype="float32")
@@ -569,10 +590,24 @@ def main() -> int:
         host_ms=host_time_ms(lambda: SSD.ssd_intra_chunk(*sargs, chunk=cl), 20))
     ssd_t["bound_ms"], ssd_t["bound_by"] = ssd_bound_ms(
         SERVE_B, SERVE_S, h_ssd, lm_cfg.ssm_head_dim, n_ssd, cl)
+    # dt and A as the model at init feeds them: A = -linspace(1, 16, H)
+    # and dt the softplus of a unit-variance projection, so exp(cum)
+    # underflows within a chunk; the kernel's time should not move.
+    margs = list(sargs)
+    margs[1] = torch.logaddexp(torch.randn(margs[1].shape, generator=gen, device=dev),
+                               torch.zeros((), device=dev))
+    margs[2] = -torch.linspace(1.0, 16.0, h_ssd, device=dev)
+    for name, a, w in zip(("y", "st", "dec"), SSD.ssd_intra_chunk(*margs, chunk=cl),
+                          ssd_intra_chunk_ref(*margs, chunk=cl)):
+        e = float((a - w).abs().max())
+        check(e <= SSD_ATOL, f"ssd on the model's dt and A: {name} max error {e}")
+        ssd_err = max(ssd_err, e)
+    ssd_t["model_inputs_ms"] = cuda_time_ms(lambda: SSD.ssd_intra_chunk(*margs, chunk=cl), 20)
     print(f"[7] ssd_chunk B={SERVE_B} S={SERVE_S} H={h_ssd} P={lm_cfg.ssm_head_dim} "
           f"N={n_ssd} chunk={cl}: kernel {ssd_t['ms']:.4f} ms (host "
           f"{ssd_t['host_ms']:.4f} ms a call), plain {ssd_t['plain_ms']:.4f} ms, "
-          f"bound {ssd_t['bound_ms']:.4f} ms ({ssd_t['bound_by']})", flush=True)
+          f"bound {ssd_t['bound_ms']:.4f} ms ({ssd_t['bound_by']}); kernel "
+          f"{ssd_t['model_inputs_ms']:.4f} ms on the model's dt and A", flush=True)
 
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
@@ -598,7 +633,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd/ssd.py:31",
         "launches": ssd_launches, "max_abs_err": ssd_err, **ssd_t,
         "shape": f"B={SERVE_B} S={SERVE_S} H={h_ssd} P={lm_cfg.ssm_head_dim} N={n_ssd} chunk={cl} f32",
-    }], "serve": {k: served[k] for k in ("prefill_tok_s", "decode_tok_s")},
+    }], "serve": {**{k: rates[k] for k in (
+        "prefill_tok_s", "decode_tok_s", "prefill_tok_s_per_batch",
+        "decode_tok_s_per_batch", "warmup_batches")},
+        "spread": spread},
         "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale}}),
         flush=True)
     print(nvidia_smi(), flush=True)

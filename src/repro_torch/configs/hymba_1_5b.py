@@ -28,6 +28,5 @@ CONFIG = LMConfig(
     ssd_chunk=128,
     param_dtype="bfloat16",
     compute_dtype="bfloat16",
-    loss_chunk=512,
     source="arXiv:2411.13676 (hf tier); uniform SWA + no meta tokens",
 )

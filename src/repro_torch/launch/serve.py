@@ -3,7 +3,10 @@ prefill, then a greedy decode loop, over a queue of requests.
 
 Static batches: requests are drained from a queue in batches of
 ``--batch``; each batch is prefilled once and decoded ``--gen`` tokens.
-Reports prefill and decode tokens/s.
+Reports prefill and decode tokens/s over the batches after the first,
+which is served too but off the clock: it pays for cuBLAS's first calls
+and the allocator's growth. The rates of each timed batch are listed
+beside them.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --requests 8 --batch 4 --prompt-len 512 --gen 32     # on the card
@@ -33,6 +36,8 @@ from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.ssd import ssd as SSD
 from repro_torch.models.lm import CausalLM
 
+WARMUP_BATCHES = 1
+
 
 class RequestQueue:
     def __init__(self, rng, num: int, vocab: int, prompt_len: int):
@@ -60,16 +65,18 @@ def cache_length(cfg, prompt_len: int, gen: int) -> int:
 
 @torch.inference_mode()
 def serve_queue(model: CausalLM, queue: RequestQueue, batch: int,
-                prompt_len: int, gen: int):
+                prompt_len: int, gen: int, warmup: int = 0):
     """Prefill and greedily decode every request of ``queue`` in static
     batches of ``batch`` (a partial last batch is padded with copies of
     its last request). Returns (generated tokens, one list per request;
-    stats). Prefill and decode are timed between synchronizes."""
+    stats). Prefill and decode are timed between synchronizes; the first
+    ``warmup`` batches are served but neither timed nor counted in the
+    token totals."""
     cfg = model.cfg
     device = model.embed.table.device
     cache_len = cache_length(cfg, prompt_len, gen)
     stats = {"prefill_tokens": 0, "decode_tokens": 0, "batches": 0,
-             "prefill_s": 0.0, "decode_s": 0.0}
+             "prefill_s": [], "decode_s": [], "batch_tokens": []}
     finite = torch.ones((), dtype=torch.bool, device=device)
     outputs = []
     while True:
@@ -82,10 +89,7 @@ def serve_queue(model: CausalLM, queue: RequestQueue, batch: int,
         t0 = time.perf_counter()
         logits, cache = model.prefill(toks, cache_len)
         synchronize(device)
-        stats["prefill_s"] += time.perf_counter() - t0
-        # real requests only: the padding rows of a partial batch are not
-        # served tokens
-        stats["prefill_tokens"] += prompt_len * len(reqs)
+        prefill_s = time.perf_counter() - t0
         finite &= torch.isfinite(logits).all()
 
         generated = []
@@ -99,8 +103,14 @@ def serve_queue(model: CausalLM, queue: RequestQueue, batch: int,
             token = torch.argmax(logits, dim=-1)
             fill += 1
         synchronize(device)
-        stats["decode_s"] += time.perf_counter() - t0
-        stats["decode_tokens"] += gen * len(reqs)
+        if stats["batches"] >= warmup:
+            stats["prefill_s"].append(prefill_s)
+            stats["decode_s"].append(time.perf_counter() - t0)
+            # real requests only: the padding rows of a partial batch are
+            # not served tokens
+            stats["batch_tokens"].append(len(reqs))
+            stats["prefill_tokens"] += prompt_len * len(reqs)
+            stats["decode_tokens"] += gen * len(reqs)
         stats["batches"] += 1
         if generated:
             outputs.extend(torch.stack(generated, 1)[: len(reqs)].tolist())
@@ -117,19 +127,31 @@ def serve(args: argparse.Namespace):
     cfg = get_config(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
     cache_length(cfg, args.prompt_len, args.gen)  # refuse before any work
+    if args.requests <= WARMUP_BATCHES * args.batch:
+        raise ValueError(f"{args.requests} requests leave no batch to time after "
+                         f"{WARMUP_BATCHES} warm-up batch of {args.batch}")
     if device.type == "cuda":
         _build.build_all([FA.SOURCE, SSD.SOURCE])
     model = CausalLM(cfg, torch.Generator(device=device).manual_seed(args.seed))
     queue = RequestQueue(np.random.default_rng(args.seed), args.requests,
                          cfg.vocab_size, args.prompt_len)
     outputs, stats = serve_queue(model, queue, args.batch, args.prompt_len,
-                                 args.gen)
+                                 args.gen, warmup=WARMUP_BATCHES)
+
+    def rate(tokens, seconds):
+        return round(tokens / max(seconds, 1e-9), 1)
+
     summary = {
         "arch": cfg.name,
         "requests": args.requests,
-        "prefill_tok_s": stats["prefill_tokens"] / max(stats["prefill_s"], 1e-9),
-        "decode_tok_s": stats["decode_tokens"] / max(stats["decode_s"], 1e-9),
+        "prefill_tok_s": rate(stats["prefill_tokens"], sum(stats["prefill_s"])),
+        "decode_tok_s": rate(stats["decode_tokens"], sum(stats["decode_s"])),
         "batches": stats["batches"],
+        "warmup_batches": WARMUP_BATCHES,
+        "prefill_tok_s_per_batch": [rate(args.prompt_len * n, t) for n, t in
+                                    zip(stats["batch_tokens"], stats["prefill_s"])],
+        "decode_tok_s_per_batch": [rate(args.gen * n, t) for n, t in
+                                   zip(stats["batch_tokens"], stats["decode_s"])],
         "sample_output": outputs[0][:8] if outputs else [],
         "logits_finite": stats["logits_finite"],
         "device": str(device),

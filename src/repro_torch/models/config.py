@@ -1,10 +1,12 @@
 """LM architecture configuration (counterpart of
 ``repro/models/config.py``).
 
-The fields are the reference's that change what is computed; its fields
-that only steer XLA or sharding (``act_shard_seq``, ``act_spec``,
-``remat``, ``scan_layers``, ``use_kernels``) have no counterpart: on the
-card the port always launches its kernels.
+The fields are the reference's that change what the ported blocks
+compute. Its fields that only steer XLA or sharding (``act_shard_seq``,
+``act_spec``, ``remat``, ``scan_layers``, ``use_kernels``) have no
+counterpart: on the card the port always launches its kernels. Its MoE
+fields and ``loss_chunk`` come with the moe block and the training path
+that read them.
 """
 
 from __future__ import annotations
@@ -27,20 +29,12 @@ class LMConfig:
     head_dim: int = 32
     d_ff: int = 512
     vocab_size: int = 256
-    mlp_type: str = "swiglu"          # swiglu|geglu|gelu|squared_relu|none
+    mlp_type: str = "swiglu"          # swiglu|none
     block_type: str = "dense"         # dense|moe|ssm|hybrid
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     rotary_fraction: float = 1.0
     window: Optional[int] = None      # sliding-window attention
-    # MoE
-    num_experts: int = 0
-    top_k: int = 1
-    expert_d_ff: int = 0
-    shared_experts: int = 0
-    capacity_factor: float = 1.25
-    router_type: str = "softmax"      # softmax|sigmoid
-    moe_dispatch: str = "scatter"     # scatter|dense
     # SSM
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -52,7 +46,6 @@ class LMConfig:
     norm_eps: float = 1e-6
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    loss_chunk: int = 1024            # vocab-xent sequence chunking
     # provenance note (source + any deviations from the published config)
     source: str = ""
 
@@ -74,7 +67,7 @@ class LMConfig:
 
     def smoke(self) -> "LMConfig":
         """Reduced same-family config for CPU smoke tests (the
-        reference's ``smoke()``, field for field)."""
+        reference's ``smoke()`` on the fields the port has)."""
         return dataclasses.replace(
             self,
             num_layers=2,
@@ -84,14 +77,9 @@ class LMConfig:
             head_dim=16,
             d_ff=128 if self.d_ff else 0,
             vocab_size=128,
-            num_experts=min(self.num_experts, 8),
-            expert_d_ff=32 if self.num_experts else 0,
-            top_k=min(self.top_k, 2),
-            shared_experts=min(self.shared_experts, 1),
             ssm_state=min(self.ssm_state, 8),
             ssm_head_dim=16 if self.ssm_state else 64,
             window=min(self.window, 16) if self.window else None,
             prefix_len=min(self.prefix_len, 4),
             ssd_chunk=8,
-            loss_chunk=32,
         )

@@ -15,6 +15,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import LMConfig
 from repro_torch.models.lm import CausalLM
 
@@ -36,10 +37,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 
 def lm_params_from_numpy(params: Mapping[str, Any], cfg: LMConfig,
-                         device: torch.device | str = "cpu") -> CausalLM:
-    """A ``CausalLM`` holding the reference's parameters (copied). Every
-    name, shape and dtype must match the port's model exactly."""
-    dev = torch.device(device)
+                         device: torch.device | str = "cuda") -> CausalLM:
+    """A ``CausalLM`` on ``device`` (the card unless the caller passes
+    "cpu") holding the reference's parameters (copied). Every name,
+    shape and dtype must match the port's model exactly."""
+    dev = resolve_device(device)
     model = CausalLM(cfg, torch.Generator(device=dev).manual_seed(0))
     state = {}
     for name, arr in _flatten(params):

@@ -1,40 +1,24 @@
-"""MLP variants: swiglu / geglu / gelu / squared-relu (counterpart of
-``repro/models/mlp.py``)."""
+"""The swiglu MLP (counterpart of ``repro/models/mlp.py``), the one that
+hymba uses. The reference's other variants (geglu, gelu, squared_relu)
+raise until an arch that uses them is ported."""
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.layers import silu
 from repro_torch.models.module import Params, dense_init
 
-GATED = {"swiglu", "geglu"}
-
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
              dtype: torch.dtype) -> Params:
-    width = 2 * d_ff if mlp_type in GATED else d_ff
-    return Params(wi=dense_init(gen, (d_model, width), dtype),
+    if mlp_type != "swiglu":
+        raise NotImplementedError(
+            f"mlp_type {mlp_type!r} is not ported yet; see ROADMAP.md, section A")
+    return Params(wi=dense_init(gen, (d_model, 2 * d_ff), dtype),
                   wo=dense_init(gen, (d_ff, d_model), dtype))
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x, approximate="tanh")
-
-
-def mlp(p: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    h = torch.matmul(x, p.wi.to(x.dtype))
-    if mlp_type in GATED:
-        g, u = h.chunk(2, dim=-1)
-        act = silu(g) if mlp_type == "swiglu" else _gelu(g)
-        h = act * u
-    elif mlp_type == "gelu":
-        h = _gelu(h)
-    elif mlp_type == "squared_relu":
-        r = F.relu(h)
-        h = r * r
-    else:
-        raise ValueError(f"unknown mlp_type {mlp_type!r}")
-    return torch.matmul(h, p.wo.to(x.dtype))
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g, u = torch.matmul(x, p.wi.to(x.dtype)).chunk(2, dim=-1)
+    return torch.matmul(silu(g) * u, p.wo.to(x.dtype))

@@ -91,7 +91,21 @@ def test_serve_cli_runs_on_cpu_and_prints_final_json():
     assert summary["arch"] == "hymba-1.5b" and summary["device"] == "cpu"
     assert summary["batches"] == 2 and summary["logits_finite"]
     assert summary["prefill_tok_s"] > 0 and summary["decode_tok_s"] > 0
+    # the first batch is the warm-up, off the clock; the second is timed
+    assert summary["warmup_batches"] == 1
+    assert len(summary["prefill_tok_s_per_batch"]) == 1
+    assert len(summary["decode_tok_s_per_batch"]) == 1
     assert len(summary["sample_output"]) == 4
+
+
+def test_serve_refuses_a_queue_that_leaves_no_batch_to_time():
+    from repro_torch.launch import serve as SV
+
+    args = SV.build_parser().parse_args(
+        ["--arch", "hymba-1.5b", "--smoke", "--requests", "2", "--batch", "2",
+         "--prompt-len", "8", "--gen", "4", "--device", "cpu"])
+    with pytest.raises(ValueError, match="no batch to time"):
+        SV.serve(args)
 
 
 def test_serve_cli_without_card_exits_1_with_message():

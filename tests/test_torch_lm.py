@@ -75,7 +75,7 @@ def pair(request):
     dtype = request.param
     jc, tc = configs(dtype)
     params = init_params(jc, 1)
-    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc)
+    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
     return dtype, jc, tc, params, model
 
 
@@ -126,8 +126,15 @@ def test_swiglu(pair):
     dtype, jc, tc, params, model = pair
     xj, xt = both(np.random.default_rng(2).standard_normal((B, S, 64)), dtype)
     with torch.inference_mode():
-        got = TM.mlp(model.blocks[0].mlp, xt, "swiglu")
+        got = TM.mlp(model.blocks[0].mlp, xt)
     close(got, JM.mlp(layer0(params)["mlp"], xj, "swiglu"), MODULE_TOL[dtype])
+
+
+@pytest.mark.parametrize("mlp_type", ["geglu", "gelu", "squared_relu"])
+def test_unported_mlp_types_raise(mlp_type):
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), mlp_type=mlp_type)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        CausalLM(cfg, torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -206,7 +213,7 @@ def f32_jit():
     """The float32 pair with the reference's prefill and decode jitted."""
     jc, tc = configs("float32")
     params = init_params(jc, 2)
-    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc)
+    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
     prefill = jax.jit(lambda p, t, c: JLM.prefill(p, jc, t, c), static_argnums=2)
     decode = jax.jit(lambda p, t, c, f: JLM.decode_step(p, jc, t, c, f))
     return jc, tc, params, model, prefill, decode
@@ -259,6 +266,25 @@ def test_serve_loop_emits_the_reference_greedy_tokens(f32_jit):
     assert got == want
 
 
+def test_serve_warmup_batches_are_served_off_the_clock(f32_jit):
+    """Warm-up batches emit the same tokens but are neither timed nor
+    counted; a partial last batch counts its real requests only."""
+    _, tc, _, model, _, _ = f32_jit
+
+    def run(warmup):
+        return serve_queue(model, RequestQueue(np.random.default_rng(3), 5,
+                                               tc.vocab_size, 6), 2, 6, 3,
+                           warmup=warmup)
+
+    cold, cold_stats = run(0)
+    warm, stats = run(1)
+    assert warm == cold and stats["batches"] == cold_stats["batches"] == 3
+    assert len(stats["prefill_s"]) == len(stats["decode_s"]) == 2
+    assert stats["batch_tokens"] == [2, 1]
+    assert (stats["prefill_tokens"], stats["decode_tokens"]) == (6 * 3, 3 * 3)
+    assert cold_stats["batch_tokens"] == [2, 2, 1]
+
+
 def test_init_cache_matches_the_reference(pair):
     dtype, jc, tc, params, model = pair
     want = JLM.init_cache(jc, 3, 10)
@@ -309,4 +335,14 @@ def test_conversion_refuses_a_dtype_mismatch():
     _, tc = configs("bfloat16")
     params = init_params(jc, 2)
     with pytest.raises(TypeError, match="dtype"):
-        lm_params_from_numpy(jax.tree.map(np.asarray, params), tc)
+        lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
+
+
+def test_conversion_runs_on_the_card_unless_asked_for_the_cpu():
+    jc, tc = configs("float32")
+    params = jax.tree.map(np.asarray, init_params(jc, 1))
+    if torch.cuda.is_available():
+        assert lm_params_from_numpy(params, tc).embed.table.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm_params_from_numpy(params, tc)
