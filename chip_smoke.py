@@ -5,8 +5,10 @@
 
 Phases, none wrapped in a ``try``; any failure exits non-zero:
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
-     three kernels (hdp_z, flash_attention, ssd_chunk) built from their
-     ``csrc`` sources, one nvcc each, all started together;
+     four kernel sources (hdp_z, flash_attention on the CUDA cores,
+     flash_fwd_sm90 on the tensor cores, ssd_chunk) built from ``csrc``,
+     one nvcc each, all started together; the tensor-core kernel's
+     registers, spills (ptxas) and dynamic shared memory;
   2. kernel against plain version on the card: every variant of
      emit_delta x prologue (in-kernel alias) mode at K in {2, 3, 257,
      1000} and W in {8, 33, 64, 256}, odd D, ragged masked padding and
@@ -29,7 +31,12 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      S=512, 25/5 heads, D=64, window 2048) in bf16 and float32, at
      S=4096 with window 2048, at ragged S=300 with a window larger than
      S, non-causal, group 1 and D in {16, 128} (atol 3e-2 bf16, 2e-5
-     float32, those of tests/test_flash_attention.py); SSD at B=2,
+     float32, those of tests/test_flash_attention.py); bf16 at D in
+     {64, 128} on the tensor-core route (also S=64, S=37, non-causal,
+     group 1, D=128 with a window), bf16 at D in {16, 32} and float32 on
+     the CUDA-core route, each launch checked against its route; at the
+     serving shape SDPA's error against the same plain version is
+     printed beside the kernel's; SSD at B=2,
      S=1024, H=50, P=64, N=16, chunk 128 with B and C shared by all heads
      (stride 0, as the model passes them) and at one odd shape (atol
      2e-4, that of tests/test_ssd.py);
@@ -37,17 +44,21 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      full width (32 layers, d_model 1600, bf16 weights from a seed): 8
      requests of 512 tokens in batches of 4, 32 greedy tokens each; every
      logit finite, and each LM kernel launched 32 layers x 2 batches
-     times. Then the serving rates: 1 warm-up batch off the clock and 5
-     timed batches, each batch's prefill and decode tok/s listed with
-     their spread. Then prefill/decode consistency in float32 at full
+     times, every flash launch on the tensor-core route. Then the
+     serving rates: 1 warm-up batch off the clock and 5 timed batches,
+     each batch's prefill and decode tok/s listed with their spread. Then prefill/decode consistency in float32 at full
      width and depth 4: decode logits after a prefill of S against the
      last logits of a prefill of S + 1;
   7. the LM kernels timed at the serving shape by CUDA events over
      back-to-back calls (beside the host time of one call), against
      their plain versions, their bound, and for attention
      ``F.scaled_dot_product_attention`` on the same inputs (timed only;
-     the port never calls it); SSD also on dt and A as the model at
-     init feeds them, held to its plain version there too.
+     the port never calls it) and the CUDA-core flash kernel, the
+     earlier design, on the same bf16 inputs; these three also by their
+     device time under ``torch.profiler``, which is what the kernels
+     line reports for them, since their host cost a call exceeds it;
+     SSD also on dt and A as the model at init feeds them, held to its
+     plain version there too.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -55,6 +66,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -110,6 +122,12 @@ SSD_ATOL = 2e-4
 # H100 80GB HBM3, 700.00 W), a few float32 ulps of the largest logit;
 # 1e-3 leaves about 7x that and is still 3e-6 of the logits' scale.
 CONSISTENCY_ATOL = 1e-3
+
+# the CUDA-core flash kernel at the serving shape before the tensor-core
+# kernel took bf16 at D=64 (this script's phase 7 at the parent commit,
+# NVIDIA H100 80GB HBM3, 700.00 W); phase 7 times that kernel again in
+# each run
+EARLIER_FLASH_MS = 0.9539
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -209,6 +227,33 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_time_ms(fn, reps: int, per_call: int | None = None) -> float:
+    """Device time of ``fn`` a call: the time of the CUDA kernels that
+    ``torch.profiler`` records over ``reps`` calls after one warm-up call,
+    over ``reps``. Unlike cuda_time_ms it leaves out the gaps in which
+    the card waits for the host, so it is the kernels' own time where a
+    call's host cost exceeds its device time. The profiler can miss
+    kernel records: a window must record ``per_call`` kernels a call
+    (when given), else a whole number a call, or it is measured again,
+    up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = sum(e.count for e in evts)
+        if kernels and (kernels == reps * per_call if per_call else kernels % reps == 0):
+            return sum(e.self_device_time_total for e in evts) / 1e3 / reps
+        print(f"[7] the profiler recorded {kernels} kernels over {reps} calls; "
+              f"measuring again", flush=True)
+    fail(f"the profiler recorded {kernels} kernels over {reps} calls, three times")
+
+
 def host_time_ms(fn, reps: int) -> float:
     """Host time of one call of ``fn`` (its launch, not its run), over
     ``reps`` calls after a synchronize: when it is near cuda_time_ms's
@@ -292,9 +337,15 @@ def flash_inputs(gen, b, hq, hkv, s, d, dtype):
     return one(hq), one(hkv), one(hkv)
 
 
-def check_flash(gen, b, hq, hkv, s, d, dtype, causal, window) -> float:
+def check_flash(gen, b, hq, hkv, s, d, dtype, causal, window, sdpa=False):
+    """Kernel against plain version on one case, the launch on the route
+    ``FA.route`` gives; returns the kernel's max error and, with
+    ``sdpa`` (a case where SDPA computes the same function), SDPA's max
+    error against the same plain version."""
     q, k, v = flash_inputs(gen, b, hq, hkv, s, d, dtype)
+    route = FA.route(dtype, d)
     before = FA.flash_attention.launches
+    before_route = FA.flash_attention.launches_by_route[route]
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = attention_ref(q, k, v, causal=causal, window=window)
@@ -302,10 +353,17 @@ def check_flash(gen, b, hq, hkv, s, d, dtype, causal, window) -> float:
     tag = (f"flash B={b} Hq={hq} Hkv={hkv} S={s} D={d} {dtype} "
            f"causal={causal} window={window}")
     check(FA.flash_attention.launches == before + 1, f"{tag}: no launch")
+    check(FA.flash_attention.launches_by_route[route] == before_route + 1,
+          f"{tag}: not launched on the {route} route")
     check(got.dtype == dtype and got.shape == want.shape, f"{tag}: dtype/shape")
     check(err <= FLASH_ATOL[dtype], f"{tag}: max error {err} > {FLASH_ATOL[dtype]}")
-    print(f"[5] {tag}: max |kernel - plain| {err:.3g}", flush=True)
-    return err
+    lib_err = None
+    if sdpa:
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+        lib_err = float((lib.float() - want.float()).abs().max())
+    print(f"[5] {tag} ({route}): max |kernel - plain| {err:.3g}" + (
+        f"; max |SDPA - plain| {lib_err:.3g}" if sdpa else ""), flush=True)
+    return err, lib_err
 
 
 def ssd_inputs(gen, b, s, h, p, n):
@@ -352,12 +410,20 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    sources = [HZ.SOURCE, FA.SOURCE, SSD.SOURCE]
+    sources = [HZ.SOURCE, *FA.SOURCES, SSD.SOURCE]
     paths = _build.build_all(sources)
     print(f"[1] built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
               f"{src.name} {_build.BUILD_SECONDS.get(src.name, 0.0):.2f} s"
               for src in sources) + ")", flush=True)
+    report = _build.ptxas_report(FA.SM90_SOURCE)
+    check("registers" in report, "no ptxas report for flash_fwd_sm90.cu")
+    for line in report.splitlines():
+        if re.search(r"registers|spill|smem", line):
+            print(f"[1] flash_fwd_sm90 ptxas: {line.strip()}", flush=True)
+    print("[1] flash_fwd_sm90 dynamic shared memory per CTA: " + ", ".join(
+        f"D={d} {FA.sm90_smem_bytes(d)} B" for d in FA.TENSOR_CORE_HEAD_DIMS),
+        flush=True)
 
     # ---- 2. kernel against plain version, small shapes -----------------
     rng = np.random.default_rng(0)
@@ -479,8 +545,11 @@ def main() -> int:
     lm_cfg = get_config("hymba-1.5b")
     hq, hkv, hd, win = (lm_cfg.num_heads, lm_cfg.num_kv_heads, lm_cfg.head_dim,
                         lm_cfg.window)
-    fa_err = max(check_flash(gen, *case) for case in (
-        (SERVE_B, hq, hkv, SERVE_S, hd, bf16, True, win),   # prefill shape
+    # the prefill shape; window 2048 > S, so SDPA's causal attention is
+    # the same function
+    fa_err, fa_sdpa_err = check_flash(gen, SERVE_B, hq, hkv, SERVE_S, hd, bf16,
+                                      True, win, sdpa=True)
+    fa_err = max([fa_err] + [check_flash(gen, *case)[0] for case in (
         (SERVE_B, hq, hkv, SERVE_S, hd, f32, True, win),
         (1, hq, hkv, 4096, hd, bf16, True, win),            # window bites
         (1, hq, hkv, 300, hd, bf16, True, win),             # ragged S < window
@@ -488,7 +557,17 @@ def main() -> int:
         (2, 4, 4, 300, 32, f32, False, None),               # non-causal, group 1
         (1, 4, 4, 256, 128, f32, True, 48),                 # group 1, D=128
         (2, 4, 2, 64, 16, f32, True, None),
-    ))
+        # the tensor-core route's edges
+        (2, hq, hkv, 64, hd, bf16, True, None),             # one tile
+        (2, 4, 2, 37, hd, bf16, True, None),                # S below one tile
+        (2, 4, 2, 300, hd, bf16, False, None),              # non-causal
+        (2, 4, 4, 300, hd, bf16, True, 100),                # group 1, window
+        (1, 4, 4, 256, 128, bf16, True, 48),                # D=128, window
+        (2, 8, 2, 200, 128, bf16, False, None),             # D=128, non-causal
+        # bf16 below D=64 stays on the CUDA cores
+        (2, 4, 2, 300, 32, bf16, True, 100),
+        (1, 6, 3, 70, 16, bf16, False, None),
+    )])
     n_ssd = lm_cfg.ssm_state
     h_ssd = lm_cfg.ssm_expand * lm_cfg.d_model // lm_cfg.ssm_head_dim
     ssd_err = max(check_ssd(gen, *case) for case in (
@@ -501,14 +580,19 @@ def main() -> int:
         "--arch", "hymba-1.5b", "--requests", "8", "--batch", str(SERVE_B),
         "--prompt-len", str(SERVE_S), "--gen", "32", "--seed", "0"])
     FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route.update(dict.fromkeys(FA.ROUTES, 0))
     SSD.ssd_intra_chunk.launches = 0
     outputs, served = SV.serve(serve_args)
     fa_launches = FA.flash_attention.launches
+    fa_by_route = dict(FA.flash_attention.launches_by_route)
     ssd_launches = SSD.ssd_intra_chunk.launches
     want_launches = lm_cfg.num_layers * 2  # layers x batches
     check(fa_launches == want_launches and ssd_launches == want_launches,
           f"serve: flash {fa_launches}, ssd {ssd_launches} launches, "
           f"expected {want_launches} each")
+    check(fa_by_route["tensor_cores"] == want_launches,
+          f"serve: flash launches by route {fa_by_route}, expected all "
+          f"{want_launches} on tensor_cores")
     check(served["logits_finite"], "serve: a logit is not finite")
     check(len(outputs) == 8 and all(len(o) == 32 for o in outputs),
           "serve: not 8 requests of 32 tokens")
@@ -516,7 +600,7 @@ def main() -> int:
           "serve: a token outside the vocabulary")
     print(f"[6] served hymba-1.5b (32 layers, d_model 1600, bf16): 8 requests, "
           f"batch {SERVE_B}, prompt {SERVE_S}, gen 32; launches flash "
-          f"{fa_launches}, ssd {ssd_launches}", flush=True)
+          f"{fa_launches} (by route {fa_by_route}), ssd {ssd_launches}", flush=True)
 
     # The serving rates: one warm-up batch off the clock, then
     # RATE_BATCHES timed batches, each batch's rate listed.
@@ -562,18 +646,51 @@ def main() -> int:
     # window 2048 > S = 512, so causal attention is the same function
     lib_err = float((fa_out.float() - lib_out.float()).abs().max())
     check(lib_err <= FLASH_ATOL[bf16], f"SDPA differs from the kernel by {lib_err}")
+    # the CUDA-core kernel on the same bf16 inputs: the earlier design,
+    # timed in this call (these launches are off the main path)
+    core_out = FA._launch("cuda_cores", q, k, v, True, win)
+    core_err = float((core_out.float() - fa_out.float()).abs().max())
+    check(core_err <= FLASH_ATOL[bf16], f"the two flash kernels differ by {core_err}")
+    # The kernel's and SDPA's host costs a call exceed their device
+    # times, so back-to-back events time the host: ms, library_ms and
+    # cuda_core_ms are device times (profiler), the event times beside.
+    fa_fn = lambda: FA.flash_attention(q, k, v, causal=True, window=win)  # noqa: E731
+    sdpa_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    core_fn = lambda: FA._launch("cuda_cores", q, k, v, True, win)  # noqa: E731
     fa_t = dict(
-        ms=cuda_time_ms(lambda: FA.flash_attention(q, k, v, causal=True, window=win), 20),
+        ms=device_time_ms(fa_fn, 50, per_call=1),
         plain_ms=cuda_time_ms(lambda: attention_ref(q, k, v, causal=True, window=win), 5),
-        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 20),
-        host_ms=host_time_ms(lambda: FA.flash_attention(q, k, v, causal=True, window=win), 20))
+        library_ms=device_time_ms(sdpa_fn, 50),
+        host_ms=host_time_ms(fa_fn, 20),
+        event_ms=cuda_time_ms(fa_fn, 20),
+        library_event_ms=cuda_time_ms(sdpa_fn, 20),
+        cuda_core_ms=device_time_ms(core_fn, 20, per_call=1),
+        cuda_core_event_ms=cuda_time_ms(core_fn, 20))
     fa_t["bound_ms"], fa_t["bound_by"] = flash_bound_ms(
         SERVE_B, hq, hkv, SERVE_S, hd, 2, True, win)
+    # the tensor-core kernel built without multiply-add contraction
+    own = _build.nvcc_flags(FA.SM90_SOURCE)
+    no_fma = tuple("--fmad=false" if f == "--fmad=true" else f for f in own)
+    check(no_fma != own, "flash_fwd_sm90.cu does not build with --fmad=true")
+    no_fma_fn = lambda: FA._launch("tensor_cores", q, k, v, True, win, no_fma)  # noqa: E731
+    no_fma_err = float((no_fma_fn().float() - fa_out.float()).abs().max())
+    check(no_fma_err <= FLASH_ATOL[bf16], f"the --fmad=false build differs by {no_fma_err}")
+    fa_t["no_fma_ms"] = device_time_ms(no_fma_fn, 50, per_call=1)
+    fa_t["no_fma_max_abs_diff"] = no_fma_err
+    print(f"[7] flash_fwd_sm90 built with --fmad=false: device time "
+          f"{fa_t['no_fma_ms']:.4f} ms; max |difference| from the --fmad=true "
+          f"build {no_fma_err:.3g}", flush=True)
     print(f"[7] flash_attention B={SERVE_B} S={SERVE_S} {hq}/{hkv} heads D={hd} "
-          f"bf16: kernel {fa_t['ms']:.4f} ms (host {fa_t['host_ms']:.4f} ms a call), plain {fa_t['plain_ms']:.4f} ms, "
-          f"SDPA {fa_t['library_ms']:.4f} ms, bound {fa_t['bound_ms']:.4f} ms "
-          f"({fa_t['bound_by']})", flush=True)
+          f"bf16, device time: kernel {fa_t['ms']:.4f} ms, SDPA "
+          f"{fa_t['library_ms']:.4f} ms (kernel / SDPA "
+          f"{fa_t['ms'] / fa_t['library_ms']:.2f}), CUDA-core kernel "
+          f"{fa_t['cuda_core_ms']:.4f} ms, bound {fa_t['bound_ms']:.4f} ms "
+          f"({fa_t['bound_by']}); by events back to back: kernel "
+          f"{fa_t['event_ms']:.4f} ms (host {fa_t['host_ms']:.4f} ms a call), "
+          f"SDPA {fa_t['library_event_ms']:.4f} ms, CUDA-core kernel "
+          f"{fa_t['cuda_core_event_ms']:.4f} ms, plain {fa_t['plain_ms']:.4f} ms",
+          flush=True)
 
     cl = lm_cfg.ssd_chunk
     sargs = ssd_inputs(gen, SERVE_B, SERVE_S, h_ssd, lm_cfg.ssm_head_dim, n_ssd)
@@ -623,9 +740,13 @@ def main() -> int:
                       "tables_built_first": z_step_ms["off"]},
     }, {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
-        "launches": fa_launches, "max_abs_err": fa_err, **fa_t,
+        "launches": fa_launches, "launches_by_route": fa_by_route,
+        "max_abs_err": fa_err, "sdpa_max_abs_err": fa_sdpa_err, **fa_t,
+        # float32, and bf16 at D in {16, 32}, stay on the CUDA cores
+        "cuda_core_source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "earlier_ms": EARLIER_FLASH_MS,
         "shape": f"B={SERVE_B} S={SERVE_S} Hq={hq} Hkv={hkv} D={hd} bf16 causal window={win}",
     }, {
         "name": "ssd_chunk", "route": "cuda",

@@ -4,8 +4,11 @@ Each kernel is one ``.cu`` file with a plain C interface. It is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 ``ctypes``; no PyTorch headers are included, so a build takes seconds.
 Libraries go to ``kernels/_build/`` beside this file (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``), named by a hash of the source and its own flags
+(``nvcc_flags``), so an edited source or a changed flag is rebuilt and
+an unchanged one is loaded as it is. ``ptxas``'s report (registers,
+shared memory and spills of each kernel) is kept beside each library
+and read by ``ptxas_report``.
 """
 
 from __future__ import annotations
@@ -23,16 +26,24 @@ from typing import Iterable
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no multiply-add contraction, so that hdp_z matches its plain
-    # version bit for bit (never --use_fast_math); the LM kernels are
-    # held to their plain versions within stated tolerances
-    "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+# Each source's own flags, after NVCC_FLAGS. hdp_z builds without
+# multiply-add contraction, so that it matches its plain version bit for
+# bit (never --use_fast_math); the two CUDA-core LM kernels keep the
+# flags they were measured with. Other sources (the tensor-core flash
+# kernel) contract: they are held to their plain versions within stated
+# tolerances.
+SOURCE_FLAGS = {
+    "hdp_z.cu": ("--fmad=false",),
+    "flash_attention.cu": ("--fmad=false",),
+    "ssd_chunk.cu": ("--fmad=false",),
+}
+DEFAULT_SOURCE_FLAGS = ("--fmad=true",)
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-_LOADED: dict[str, ctypes.CDLL] = {}
+_LOADED: dict[tuple, ctypes.CDLL] = {}
 # seconds spent compiling, per source, in this process (0 when cached)
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -51,17 +62,33 @@ def _nvcc() -> str:
     )
 
 
-def library_path(source: Path) -> Path:
+def nvcc_flags(source: Path) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(Path(source).name, DEFAULT_SOURCE_FLAGS)
+
+
+def library_path(source: Path, flags: tuple[str, ...] | None = None) -> Path:
+    """Where ``source`` built with ``flags`` (its own by default) lives."""
+    flags = nvcc_flags(source) if flags is None else flags
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        Path(source).read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 
-def build(source: Path) -> Path:
-    """Compile ``source`` unless a library for its current hash exists."""
+def ptxas_report(source: Path) -> str:
+    """What nvcc printed building ``source`` (``ptxas -v``'s registers,
+    spills and static shared memory per kernel), or "" before it is
+    built."""
+    path = library_path(Path(source).resolve()).with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
+
+
+def build(source: Path, flags: tuple[str, ...] | None = None) -> Path:
+    """Compile ``source`` with ``flags`` (its own by default) unless a
+    library for their current hash exists."""
     source = Path(source).resolve()
-    out = library_path(source)
+    flags = nvcc_flags(source) if flags is None else tuple(flags)
+    out = library_path(source, flags)
     if out.exists():
         BUILD_SECONDS.setdefault(source.name, 0.0)
         return out
@@ -69,7 +96,7 @@ def build(source: Path) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    cmd = [_nvcc(), *flags, "-o", tmp, str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
@@ -77,6 +104,7 @@ def build(source: Path) -> Path:
             f"nvcc failed ({res.returncode}) on {source.name}:\n"
             f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
         )
+    out.with_suffix(".ptxas.txt").write_text(res.stdout + res.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     BUILD_SECONDS[source.name] = time.perf_counter() - t0
     return out
@@ -90,12 +118,12 @@ def build_all(sources: Iterable[Path]) -> list[Path]:
         return list(pool.map(build, sources))
 
 
-def load(source: Path) -> ctypes.CDLL:
+def load(source: Path, flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
     """Build if needed, then load once per process: later calls return
     the loaded library without reading the source again."""
-    key = str(Path(source).resolve())
+    key = (str(Path(source).resolve()), flags)
     lib = _LOADED.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(source)))
+        lib = ctypes.CDLL(str(build(source, flags)))
         _LOADED[key] = lib
     return lib

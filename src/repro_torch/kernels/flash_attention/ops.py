@@ -1,7 +1,8 @@
 """Entry point for attention (counterpart of
 ``repro/kernels/flash_attention/ops.py``): on the card every call
-launches the flash kernel; on the CPU the plain version runs, query
-chunked above ``CHUNKED_THRESHOLD`` as in the reference."""
+launches one of the two flash kernels (``flash_attention.route`` picks
+it); on the CPU the plain version runs, query chunked above
+``CHUNKED_THRESHOLD`` as in the reference."""
 
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
 from repro.kernels.flash_attention.ref import (  # noqa: E402
     attention_chunked as jax_chunked, attention_ref as jax_ref)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention)
+    flash_attention, route, tma_check)
 from repro_torch.kernels.flash_attention.ops import mha  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_chunked, attention_ref)
@@ -112,6 +112,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     out = mha(*tx, causal=True, window=None)
     torch.testing.assert_close(out, attention_ref(*tx), rtol=0, atol=0)
     assert flash_attention.launches == before == 0
+    assert sum(flash_attention.launches_by_route.values()) == 0
 
 
 @pytest.mark.parametrize("bad", ["heads", "dtype", "window"])
@@ -126,3 +127,103 @@ def test_wrapper_refuses_malformed_inputs(bad):
         kwargs["window"] = 0
     with pytest.raises((ValueError, TypeError)):
         flash_attention(q, k, v, **kwargs)
+
+
+# -- routing on the card, and TMA's preconditions (no card needed) -------------
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 16, "cuda_cores"),
+    (torch.bfloat16, 32, "cuda_cores"),
+    (torch.float32, 16, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"),
+])
+def test_route_by_dtype_and_head_dim(dtype, d, want):
+    assert route(dtype, d) == want
+
+
+@pytest.mark.parametrize("shape,strides,ptr", [
+    # the model's (B, S, H, D) projection seen as (B, H, S, D)
+    ((4, 25, 512, 64), (512 * 25 * 64, 64, 25 * 64, 1), 0x7f0000000000),
+    ((1, 5, 300, 128), (7, 128, 5 * 128, 1), 0x7f0000000010),  # B=1: stride unused
+    ((2, 1, 64, 64), (64 * 64, 3, 64, 1), 0x100),               # H=1: stride unused
+])
+def test_tma_check_accepts_aligned_inputs(shape, strides, ptr):
+    tma_check("q", shape, strides, ptr, 2)
+
+
+@pytest.mark.parametrize("shape,strides,ptr,match", [
+    ((4, 25, 512, 64), (512 * 25 * 64, 64, 25 * 64, 1), 0x7f0000000008,
+     "base pointer .* not 16-byte aligned"),
+    ((4, 25, 512, 64), (512 * 25 * 64, 64, 25 * 64 + 4, 1), 0x7f0000000000,
+     "stride 1604 of dim 2 is 3208 bytes, not a multiple of 16"),
+    ((2, 4, 64, 64), (4 * 64 * 68 + 2, 64 * 68, 68, 1), 0x100,
+     "stride 17410 of dim 0"),
+])
+def test_tma_check_refuses_misaligned_inputs(shape, strides, ptr, match):
+    with pytest.raises(ValueError, match=match):
+        tma_check("q", shape, strides, ptr, 2)
+
+
+# -- the tensor-core kernel's rounding budget -----------------------------------
+
+def emulate_tensor_core_kernel(q, k, v, *, causal, window, bk=64):
+    """The arithmetic of ``csrc/flash_fwd_sm90.cu`` in float32 on the CPU:
+    per kv tile of ``bk`` keys, float32 scores from bf16 q and k in log2
+    units (scale * log2(e) in one multiply), masked ones -1e30 with
+    weight 0, the online softmax with float32 (m, l, acc), and P rounded
+    to bf16 before P.V with float32 accumulation; the output rounded to
+    bf16."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scale_log2 = d ** -0.5 * 1.4426950408889634
+    m = torch.full((b, hq, s), -1e30)
+    l = torch.zeros((b, hq, s))
+    acc = torch.zeros((b, hq, s, d))
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        kpos = torch.arange(k0, min(k0 + bk, s))[None, :]
+        keep = torch.ones((s, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            keep &= kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        x = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + bk])
+        t = torch.where(keep, x * scale_log2, -1e30)
+        m_cur = torch.maximum(m, t.amax(dim=-1))
+        corr = torch.exp2(m - m_cur)
+        p = torch.where(keep, torch.exp2(t - m_cur[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf[:, :, k0:k0 + bk])
+        m = m_cur
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,bq,bk,causal,window", [
+    # the bf16 parameter sets above
+    (1, 4, 2, 64, 32, 32, 32, True, None),
+    (1, 10, 2, 64, 64, 32, 32, True, 48),
+    # the kernel's other head dim, several kv tiles, a window and no mask
+    (1, 4, 2, 192, 128, 64, 64, True, 80),
+    (1, 4, 4, 128, 64, 64, 64, False, None),
+])
+def test_rounding_p_to_bf16_fits_the_bf16_tolerance(b, hq, hkv, s, d, bq, bk,
+                                                    causal, window):
+    jx, tx = mk(s + d + hq, b, hq, hkv, s, d, "bfloat16")
+    want = jax_flash(*jx, causal=causal, window=window, block_q=bq,
+                     block_k=bk, interpret=True)
+    got = emulate_tensor_core_kernel(*tx, causal=causal, window=window)
+    close(got, want, "bfloat16")
+
+
+def test_rounding_budget_at_hymbas_heads_against_the_oracle():
+    jx, tx = mk(11, 2, 25, 5, 150, 64, "bfloat16")
+    want = jax_ref(*jx, causal=True, window=100)
+    close(emulate_tensor_core_kernel(*tx, causal=True, window=100), want,
+          "bfloat16")
