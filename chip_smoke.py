@@ -56,7 +56,8 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      the port never calls it) and the CUDA-core flash kernel, the
      earlier design, on the same bf16 inputs; these three also by their
      device time under ``torch.profiler``, which is what the kernels
-     line reports for them, since their host cost a call exceeds it;
+     line reports for them, since their host cost a call exceeds it
+     (the line's ``earlier_ms`` is the CUDA-core kernel by events);
      SSD also on dt and A as the model at init feeds them, held to its
      plain version there too.
 The last lines are the ``kernels`` JSON, the card's name and power
@@ -122,12 +123,6 @@ SSD_ATOL = 2e-4
 # H100 80GB HBM3, 700.00 W), a few float32 ulps of the largest logit;
 # 1e-3 leaves about 7x that and is still 3e-6 of the logits' scale.
 CONSISTENCY_ATOL = 1e-3
-
-# the CUDA-core flash kernel at the serving shape before the tensor-core
-# kernel took bf16 at D=64 (this script's phase 7 at the parent commit,
-# NVIDIA H100 80GB HBM3, 700.00 W); phase 7 times that kernel again in
-# each run
-EARLIER_FLASH_MS = 0.9539
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -666,21 +661,11 @@ def main() -> int:
         event_ms=cuda_time_ms(fa_fn, 20),
         library_event_ms=cuda_time_ms(sdpa_fn, 20),
         cuda_core_ms=device_time_ms(core_fn, 20, per_call=1),
-        cuda_core_event_ms=cuda_time_ms(core_fn, 20))
+        # the earlier design by events, the yardstick its time was
+        # taken by before the tensor-core kernel took bf16 at D 64, 128
+        earlier_ms=cuda_time_ms(core_fn, 20))
     fa_t["bound_ms"], fa_t["bound_by"] = flash_bound_ms(
         SERVE_B, hq, hkv, SERVE_S, hd, 2, True, win)
-    # the tensor-core kernel built without multiply-add contraction
-    own = _build.nvcc_flags(FA.SM90_SOURCE)
-    no_fma = tuple("--fmad=false" if f == "--fmad=true" else f for f in own)
-    check(no_fma != own, "flash_fwd_sm90.cu does not build with --fmad=true")
-    no_fma_fn = lambda: FA._launch("tensor_cores", q, k, v, True, win, no_fma)  # noqa: E731
-    no_fma_err = float((no_fma_fn().float() - fa_out.float()).abs().max())
-    check(no_fma_err <= FLASH_ATOL[bf16], f"the --fmad=false build differs by {no_fma_err}")
-    fa_t["no_fma_ms"] = device_time_ms(no_fma_fn, 50, per_call=1)
-    fa_t["no_fma_max_abs_diff"] = no_fma_err
-    print(f"[7] flash_fwd_sm90 built with --fmad=false: device time "
-          f"{fa_t['no_fma_ms']:.4f} ms; max |difference| from the --fmad=true "
-          f"build {no_fma_err:.3g}", flush=True)
     print(f"[7] flash_attention B={SERVE_B} S={SERVE_S} {hq}/{hkv} heads D={hd} "
           f"bf16, device time: kernel {fa_t['ms']:.4f} ms, SDPA "
           f"{fa_t['library_ms']:.4f} ms (kernel / SDPA "
@@ -689,7 +674,7 @@ def main() -> int:
           f"({fa_t['bound_by']}); by events back to back: kernel "
           f"{fa_t['event_ms']:.4f} ms (host {fa_t['host_ms']:.4f} ms a call), "
           f"SDPA {fa_t['library_event_ms']:.4f} ms, CUDA-core kernel "
-          f"{fa_t['cuda_core_event_ms']:.4f} ms, plain {fa_t['plain_ms']:.4f} ms",
+          f"{fa_t['earlier_ms']:.4f} ms, plain {fa_t['plain_ms']:.4f} ms",
           flush=True)
 
     cl = lm_cfg.ssd_chunk
@@ -746,7 +731,6 @@ def main() -> int:
         "max_abs_err": fa_err, "sdpa_max_abs_err": fa_sdpa_err, **fa_t,
         # float32, and bf16 at D in {16, 32}, stay on the CUDA cores
         "cuda_core_source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "earlier_ms": EARLIER_FLASH_MS,
         "shape": f"B={SERVE_B} S={SERVE_S} Hq={hq} Hkv={hkv} D={hd} bf16 causal window={win}",
     }, {
         "name": "ssd_chunk", "route": "cuda",

@@ -43,7 +43,7 @@ DEFAULT_SOURCE_FLAGS = ("--fmad=true",)
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-_LOADED: dict[tuple, ctypes.CDLL] = {}
+_LOADED: dict[str, ctypes.CDLL] = {}
 # seconds spent compiling, per source, in this process (0 when cached)
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -66,11 +66,10 @@ def nvcc_flags(source: Path) -> tuple[str, ...]:
     return NVCC_FLAGS + SOURCE_FLAGS.get(Path(source).name, DEFAULT_SOURCE_FLAGS)
 
 
-def library_path(source: Path, flags: tuple[str, ...] | None = None) -> Path:
-    """Where ``source`` built with ``flags`` (its own by default) lives."""
-    flags = nvcc_flags(source) if flags is None else flags
+def library_path(source: Path) -> Path:
+    """Where ``source`` built with its own flags lives."""
     digest = hashlib.sha256(
-        Path(source).read_bytes() + " ".join(flags).encode()
+        Path(source).read_bytes() + " ".join(nvcc_flags(source)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
@@ -83,12 +82,11 @@ def ptxas_report(source: Path) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def build(source: Path, flags: tuple[str, ...] | None = None) -> Path:
-    """Compile ``source`` with ``flags`` (its own by default) unless a
-    library for their current hash exists."""
+def build(source: Path) -> Path:
+    """Compile ``source`` with its own flags unless a library for their
+    current hash exists."""
     source = Path(source).resolve()
-    flags = nvcc_flags(source) if flags is None else tuple(flags)
-    out = library_path(source, flags)
+    out = library_path(source)
     if out.exists():
         BUILD_SECONDS.setdefault(source.name, 0.0)
         return out
@@ -96,7 +94,7 @@ def build(source: Path, flags: tuple[str, ...] | None = None) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *flags, "-o", tmp, str(source)]
+    cmd = [_nvcc(), *nvcc_flags(source), "-o", tmp, str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
@@ -118,12 +116,12 @@ def build_all(sources: Iterable[Path]) -> list[Path]:
         return list(pool.map(build, sources))
 
 
-def load(source: Path, flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
+def load(source: Path) -> ctypes.CDLL:
     """Build if needed, then load once per process: later calls return
     the loaded library without reading the source again."""
-    key = (str(Path(source).resolve()), flags)
+    key = str(Path(source).resolve())
     lib = _LOADED.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(source, flags)))
+        lib = ctypes.CDLL(str(build(source)))
         _LOADED[key] = lib
     return lib

@@ -45,8 +45,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 16  # bytes, for base pointers and strides
 
 
-def _bind(source: Path, name: str, n_ints: int, flags=None) -> ctypes.CDLL:
-    lib = _build.load(source, flags)
+def _bind(source: Path, name: str, n_ints: int) -> ctypes.CDLL:
+    lib = _build.load(source)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, name)
     fn.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float] + [ci] * n_ints + [vp]
@@ -60,8 +60,8 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _lib_sm90(flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
-    lib = _bind(SM90_SOURCE, "flash_fwd_sm90_launch", 2, flags)
+def _lib_sm90() -> ctypes.CDLL:
+    lib = _bind(SM90_SOURCE, "flash_fwd_sm90_launch", 2)
     lib.flash_fwd_sm90_smem_bytes.argtypes = [ctypes.c_int]
     lib.flash_fwd_sm90_smem_bytes.restype = ctypes.c_int
     return lib
@@ -143,10 +143,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(r, q, k, v, causal, window)
 
 
-def _launch(r: str, q, k, v, causal: bool, window: int | None,
-            flags: tuple[str, ...] | None = None) -> torch.Tensor:
-    """Launch route ``r``'s kernel on checked CUDA inputs; ``flags``
-    builds the tensor-core kernel with other nvcc flags than its own."""
+def _launch(r: str, q, k, v, causal: bool, window: int | None) -> torch.Tensor:
+    """Launch route ``r``'s kernel on checked CUDA inputs."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
@@ -154,7 +152,7 @@ def _launch(r: str, q, k, v, causal: bool, window: int | None,
         return out
     if r == "tensor_cores":
         st = [x for t in (q, k, v) for x in _tma_strides(t)]
-        fn, extra = _lib_sm90(flags).flash_fwd_sm90_launch, ()
+        fn, extra = _lib_sm90().flash_fwd_sm90_launch, ()
     else:
         st = [x for t in (q, k, v) for x in t.stride()[:3]]
         fn, extra = _lib().flash_attention_launch, (DTYPES[q.dtype],)

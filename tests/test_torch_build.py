@@ -30,15 +30,15 @@ def test_the_tensor_core_flash_kernel_contracts():
     assert "--fmad=true" in _build.nvcc_flags(FA.SM90_SOURCE)
 
 
-def test_a_change_of_flags_changes_the_library_path():
-    src = FA.SM90_SOURCE
-    own = _build.library_path(src)
-    assert own == _build.library_path(src, _build.nvcc_flags(src))
-    other = tuple(f if not f.startswith("--fmad=") else "--fmad=false"
-                  for f in _build.nvcc_flags(src))
-    assert _build.library_path(src, other) != own
-    assert _build.library_path(HZ.SOURCE) != _build.library_path(
-        HZ.SOURCE, _build.NVCC_FLAGS + ("--fmad=true",))
+def test_a_change_of_flags_changes_the_library_path(monkeypatch):
+    own = {src: _build.library_path(src) for src in (FA.SM90_SOURCE, HZ.SOURCE)}
+    assert own[FA.SM90_SOURCE] == _build.library_path(FA.SM90_SOURCE)
+    monkeypatch.setattr(_build, "SOURCE_FLAGS", {
+        **_build.SOURCE_FLAGS, FA.SM90_SOURCE.name: ("--fmad=false",),
+        HZ.SOURCE.name: ("--fmad=true",)})
+    assert "--fmad=false" in _build.nvcc_flags(FA.SM90_SOURCE)
+    for src, path in own.items():
+        assert _build.library_path(src) != path
 
 
 def test_the_report_is_read_from_beside_the_library(tmp_path, monkeypatch):
