@@ -5,26 +5,37 @@
 
 Phases, none wrapped in a ``try``; any failure exits non-zero:
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
-     four kernel sources (hdp_z, flash_attention on the CUDA cores,
-     flash_fwd_sm90 on the tensor cores, ssd_chunk) built from ``csrc``,
-     one nvcc each, all started together; the tensor-core kernel's
-     registers, spills (ptxas) and dynamic shared memory;
-  2. kernel against plain version on the card: every variant of
+     five kernel sources (hdp_z_lanes and hdp_z, flash_attention on the
+     CUDA cores, flash_fwd_sm90 on the tensor cores, ssd_chunk) built
+     from ``csrc``, one nvcc each, all started together; the registers,
+     spills (ptxas) and dynamic shared memory of the lanes hdp_z kernel
+     and of the tensor-core kernel;
+  2. hdp_z against its plain version on the card: every variant of
      emit_delta x prologue (in-kernel alias) mode at K in {2, 3, 257,
-     1000} and W in {8, 33, 64, 256}, odd D, ragged masked padding and
-     words with zero mass; z, m and dn must be bitwise equal and
-     n + dn == count_n(z_new);
+     1000} and W in {8, 33, 64, 256}, value- and topic-ordered tables,
+     odd D, L=24 (L=23 at W=33, where the lanes kernel reads positions
+     and rows in scalars), ragged masked padding, words with zero mass
+     and words with every count of live slots from 0 to W, all on the
+     lanes route; and
+     at K=4000, W=64 on the warp route; z, m and dn must be bitwise
+     equal, n + dn == count_n(z_new), and each launch takes the route
+     ``hdp_z.route`` gives;
   3. main path: ``repro_torch.launch.train`` takes 3 Gibbs iterations
      on the synthetic PubMed replica at --scale 0.01 (81,999 documents,
      K=1000, W=256, alias built in the kernel); after every iteration
      n == count_n(z), n.sum() == tokens, |sum(psi) - 1| < 1e-4, the
-     flag topic is empty and the kernel's launch count rose by 1;
-  4. one sweep at the main path's shape from the trained state: kernel
-     against plain version (bitwise), both timed with CUDA events, with
-     the bound the card's memory rate and float32 rate set; then the
-     whole z-step (table or support build plus sweep) with the alias
-     built in the kernel and with tables built first, bitwise equal and
-     both timed;
+     flag topic is empty and the kernel's launch count rose by 1, on the
+     lanes route;
+  4. one sweep at the main path's shape on four inputs: the trained
+     state in prologue and in table mode, random z, and a dense phi
+     (every word's W slots live) with random z; on each the kernel
+     against the plain version (bitwise), both timed with CUDA events,
+     beside the warp kernel (the earlier design) on the same inputs,
+     the words' live slots, the row bytes the first walk reads and the
+     bound the card's memory rate and float32 rate set; then the whole
+     z-step (table or support build plus sweep) with the alias built in
+     the kernel and with tables built first, bitwise equal and both
+     timed;
   5. flash attention and the SSD intra-chunk kernel against their plain
      versions on the card, in the working dtype, float32 products in
      full float32 (no TF32): attention at hymba's prefill shape (B=4,
@@ -126,6 +137,9 @@ CONSISTENCY_ATOL = 1e-3
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
+# one shape on the warp route: 32 documents' uint16 m (256,000 B at
+# K=4000) exceed an H100 block's 232,448 B
+WARP_ROUTE_K, WARP_ROUTE_W = 4000, 64
 
 
 def nvidia_smi() -> str:
@@ -152,12 +166,19 @@ def max_int_err(a, b) -> int:
 
 def small_problem(rng, k, w, device, d=37, l=24, v=50):
     """Inputs at a small shape: PPU phi with some all-zero word columns,
-    ragged documents with masked padding, random z and uniforms."""
+    then min(K, W) + 1 words of which the j-th has j topics (so their
+    supports hold every count of live slots), ragged documents with
+    masked padding, random z and uniforms."""
     n = torch.from_numpy(rng.poisson(0.8, size=(k, v)).astype(np.int32)).to(device)
     gen = H.make_generator(int(rng.integers(1 << 30)), device)
     phi, _ = ppu_sample(gen, n, 0.01)
     zero_words = rng.choice(v, size=3, replace=False)
     phi[:, torch.from_numpy(zero_words).to(device)] = 0.0
+    graded = np.zeros((k, min(k, w) + 1), np.float32)
+    for j in range(graded.shape[1]):
+        graded[rng.choice(k, size=j, replace=False), j] = rng.integers(1, 5, j) / (4.0 * v)
+    phi = torch.cat([phi, torch.from_numpy(graded).to(device)], dim=1)
+    v = phi.shape[1]
     psi = torch.from_numpy(rng.dirichlet(np.ones(k)).astype(np.float32)).to(device)
     tok = rng.integers(0, v, (d, l)).astype(np.int32)
     tok[:, :3] = zero_words  # every document meets the zero-mass words
@@ -169,18 +190,24 @@ def small_problem(rng, k, w, device, d=37, l=24, v=50):
     return phi, psi, to(tok), to(msk), to(z0), to(u)
 
 
-def compare_variants(tokens, mask, z0, u, phi, psi, alpha, w, kk):
+def compare_variants(tokens, mask, z0, u, phi, psi, alpha, w, kk, order, want_route):
     """Kernel against plain version in all four emit_delta x prologue
-    variants on the same inputs; returns the largest integer error."""
+    variants on the same inputs, each launch on ``want_route``; returns
+    the largest integer error."""
     vv = phi.shape[1]
     n0 = H.count_n(z0, tokens, mask, kk, vv)
-    q_a, fpack, ipack = zops.build_word_sparse_tables(phi, psi, alpha, w)
-    vals, ids = zops.build_word_sparse_supports(phi, w)
+    q_a, fpack, ipack = zops.build_word_sparse_tables(phi, psi, alpha, w, order=order)
+    vals, ids = zops.build_word_sparse_supports(phi, w, order=order)
     apsi = torch.tensor(alpha, dtype=torch.float32, device=psi.device) * psi
+    limit = HZ.smem_limit(tokens.device)
     worst = 0
     for in_kernel in (False, True):
         for emit in (False, True):
+            r = HZ.route(kk, tokens.shape[1], in_kernel, limit)
+            check(r == want_route, f"K={kk} in_kernel={in_kernel}: route {r}, "
+                  f"expected {want_route}")
             before = hdp_z_cuda.launches
+            before_route = hdp_z_cuda.launches_by_route[r]
             if in_kernel:
                 got = hdp_z_cuda(tokens, mask, z0, u, kk=kk, apsi=apsi,
                                  vals=vals, ids=ids, emit_delta=emit)
@@ -192,8 +219,10 @@ def compare_variants(tokens, mask, z0, u, phi, psi, alpha, w, kk):
                 want = hdp_z_ref(tokens, mask, z0, u, q_a, fpack, ipack,
                                  kk=kk, emit_delta=emit)
             torch.cuda.synchronize()
-            tag = f"K={kk} W={w} in_kernel={in_kernel} emit_delta={emit}"
+            tag = f"K={kk} W={w} {order} in_kernel={in_kernel} emit_delta={emit}"
             check(hdp_z_cuda.launches == before + 1, f"{tag}: no launch")
+            check(hdp_z_cuda.launches_by_route[r] == before_route + 1,
+                  f"{tag}: not launched on the {r} route")
             for name, a, b in zip(("z", "m", "dn"), got, want):
                 err = max_int_err(a, b)
                 worst = max(worst, err)
@@ -262,22 +291,25 @@ def host_time_ms(fn, reps: int) -> float:
     return ms
 
 
-def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit):
+def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit, row_slots, token_slots):
     """Least time for one sweep: each byte the sweep needs read once and
     each output byte written once over the memory rate, against the
     float32 work every live token needs whichever branch it takes over
-    the float32 rate.
+    the float32 rate. What the sums need depends on the data: a slot
+    past a word's live slots adds +-0.0 (``hdp_z.live_slots``).
 
     Bytes: mask, z in and z out over all D*L positions (padding keeps its
     z); tokens and uniforms only at the ``live`` positions; m (D, K); the
-    supports and apsi, or the tables and q_a, over their full shapes; dn
-    (K, V) with emit. Operations per live token: W products and W prefix
-    adds for term (b); prologue mode also W products and W adds for wa
-    and q_a."""
+    supports' values and ids at the words' live slots (``row_slots`` in
+    all) and apsi, or q_a, those values and ids and the alias tables
+    over their full (V, W) (a draw reads any slot); dn (K, V) with emit.
+    Operations: per live slot of each live token's word (``token_slots``
+    in all) a product and a prefix add for term (b); prologue mode also
+    a product and an add for wa and q_a."""
     nbytes = d * l * (1 + 4 + 4) + live * (4 + 12) + d * kk * 4
-    nbytes += (vv * w * 8 + kk * 4) if in_kernel else (vv * 4 + vv * w * 16)
+    nbytes += (row_slots * 8 + kk * 4) if in_kernel else (vv * 4 + row_slots * 8 + vv * w * 8)
     nbytes += kk * vv * 4 if emit else 0
-    ops = live * w * (4 if in_kernel else 2)
+    ops = token_slots * (4 if in_kernel else 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -405,17 +437,23 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    sources = [HZ.SOURCE, *FA.SOURCES, SSD.SOURCE]
+    sources = [*HZ.SOURCES, *FA.SOURCES, SSD.SOURCE]
     paths = _build.build_all(sources)
     print(f"[1] built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
               f"{src.name} {_build.BUILD_SECONDS.get(src.name, 0.0):.2f} s"
               for src in sources) + ")", flush=True)
-    report = _build.ptxas_report(FA.SM90_SOURCE)
-    check("registers" in report, "no ptxas report for flash_fwd_sm90.cu")
-    for line in report.splitlines():
-        if re.search(r"registers|spill|smem", line):
-            print(f"[1] flash_fwd_sm90 ptxas: {line.strip()}", flush=True)
+    for src in (HZ.LANES_SOURCE, FA.SM90_SOURCE):
+        report = _build.ptxas_report(src)
+        check("registers" in report, f"no ptxas report for {src.name}")
+        for line in report.splitlines():
+            if re.search(r"registers|spill|smem", line):
+                print(f"[1] {src.stem} ptxas: {line.strip()}", flush=True)
+    limit = HZ.smem_limit(dev)
+    warps = HZ.lanes_warps(1000, True, limit)
+    print(f"[1] hdp_z_lanes dynamic shared memory per block at K=1000, prologue "
+          f"mode: {warps} warps, {HZ.lanes_smem_bytes(1000, True, warps)} B of the "
+          f"card's {limit} B", flush=True)
     print("[1] flash_fwd_sm90 dynamic shared memory per CTA: " + ", ".join(
         f"D={d} {FA.sm90_smem_bytes(d)} B" for d in FA.TENSOR_CORE_HEAD_DIMS),
         flush=True)
@@ -426,11 +464,19 @@ def main() -> int:
     t0 = time.perf_counter()
     for kk in KS:
         for w in WS:
-            phi, psi, tokens, mask, z0, u = small_problem(rng, kk, w, dev)
-            worst = max(worst, compare_variants(
-                tokens, mask, z0, u, phi, psi, 0.3, min(w, kk), kk))
+            # L=23 at W=33: positions and rows read in scalars, not 16 bytes
+            phi, psi, tokens, mask, z0, u = small_problem(rng, kk, w, dev,
+                                                          l=23 if w == 33 else 24)
+            for order in ("value", "topic"):
+                worst = max(worst, compare_variants(
+                    tokens, mask, z0, u, phi, psi, 0.3, min(w, kk), kk, order, "lanes"))
+    phi, psi, tokens, mask, z0, u = small_problem(rng, WARP_ROUTE_K, WARP_ROUTE_W, dev)
+    worst = max(worst, compare_variants(tokens, mask, z0, u, phi, psi, 0.3, WARP_ROUTE_W,
+                                        WARP_ROUTE_K, "value", "warp"))
     print(f"[2] kernel == plain, bitwise, in 4 variants at {len(KS) * len(WS)} "
-          f"(K, W) shapes ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"(K, W) shapes x 2 table orders on the lanes route, and at K={WARP_ROUTE_K} "
+          f"W={WARP_ROUTE_W} on the warp route ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
     # ---- 3. main path ----------------------------------------------------
     args = T.build_parser().parse_args([
@@ -445,6 +491,9 @@ def main() -> int:
         it = seen["count"]
         check(hdp_z_cuda.launches == it,
               f"iteration {it}: kernel launches {hdp_z_cuda.launches}, expected {it}")
+        check(hdp_z_cuda.launches_by_route["lanes"] == it,
+              f"iteration {it}: launches by route {hdp_z_cuda.launches_by_route}, "
+              f"expected {it} on lanes")
         check(torch.equal(state.n, H.count_n(state.z, tokens, mask, cfg.K, cfg.V)),
               f"iteration {it}: n != count_n(z)")
         check(int(state.n.sum()) == int(mask.sum()),
@@ -456,10 +505,14 @@ def main() -> int:
         seen.update(state=state, tokens=tokens, mask=mask, cfg=cfg)
 
     hdp_z_cuda.launches = 0
+    hdp_z_cuda.launches_by_route.update(dict.fromkeys(HZ.ROUTES, 0))
     state, history, summary = T.train_hdp(args, on_iteration=on_iteration)
     main_launches = hdp_z_cuda.launches
+    main_by_route = dict(hdp_z_cuda.launches_by_route)
     check(seen["count"] == 3 and main_launches == 3,
           f"main path: {seen['count']} iterations, {main_launches} launches")
+    check(main_by_route == {"lanes": 3, "warp": 0},
+          f"main path: launches by route {main_by_route}, expected 3 on lanes")
     active = int(H.active_topics(state))
     check(active > 1, f"main path: {active} active topics after 3 iterations")
     tokens, mask, cfg = seen["tokens"], seen["mask"], seen["cfg"]
@@ -469,55 +522,84 @@ def main() -> int:
           f"tokens={live}; {summary['sec_per_iter']} s/iter, "
           f"{summary['tokens_per_s']} tok/s (Gibbs iterations alone, "
           f"iteration 1 included); log_lik {history[-1]['log_lik']}; "
-          f"active topics {active}; kernel launches {main_launches}",
-          flush=True)
+          f"active topics {active}; kernel launches {main_launches} (by route "
+          f"{main_by_route})", flush=True)
 
     # ---- 4. one sweep at the main shape: bitwise + timing ----------------
-    # From the trained state (few topics, most tokens keep theirs), and
-    # from random topics (m spread, many tokens take the global branch).
+    # From the trained state (few topics, most tokens keep theirs), from
+    # random topics (m spread, many tokens take the global branch), and
+    # with a dense phi (every word's W slots live) and random topics.
     gen = H.make_generator(1, dev)
     u = torch.rand((d, l, 3), generator=gen, device=dev)
     z_rand = torch.where(mask, torch.randint(0, cfg.K, (d, l), generator=gen,
                                              device=dev, dtype=torch.int32), 0)
     phi, psi = state.phi, state.psi
+    phi_dense = torch.rand((cfg.K, cfg.V), generator=gen, device=dev) + 0.01
+    phi_dense /= phi_dense.sum(1, keepdim=True)
     apsi = torch.tensor(cfg.alpha, dtype=torch.float32, device=dev) * psi
     vals, ids = zops.build_word_sparse_supports(phi, cfg.bucket)
     q_a, fpack, ipack = zops.build_word_sparse_tables(phi, psi, cfg.alpha, cfg.bucket)
+    vals_d, ids_d = zops.build_word_sparse_supports(phi_dense, cfg.bucket)
     w = vals.shape[1]
     tables = dict(q_a=q_a, fpack=fpack, ipack=ipack)
     supports = dict(apsi=apsi, vals=vals, ids=ids)
+    dense = dict(apsi=apsi, vals=vals_d, ids=ids_d)
+    check(bool((vals_d != 0).all()), "dense phi: a support slot is zero")
     timing = {}
-    for label, in_kernel, z in (("prologue", True, state.z),
-                                ("table", False, state.z),
-                                ("prologue_random_z", True, z_rand)):
-        args_k = supports if in_kernel else tables
-
+    for label, in_kernel, z, args_k in (("prologue", True, state.z, supports),
+                                        ("table", False, state.z, tables),
+                                        ("prologue_random_z", True, z_rand, supports),
+                                        ("dense_phi", True, z_rand, dense)):
         def kern():
             return hdp_z_cuda(tokens, mask, z, u, kk=cfg.K, emit_delta=True, **args_k)
 
+        def earlier():
+            return HZ._launch("warp", tokens, mask, z, u, kk=cfg.K, emit_delta=True,
+                              **args_k)
+
         plain_fn = hdp_z_ref_prologue if in_kernel else hdp_z_ref
+        before = dict(hdp_z_cuda.launches_by_route)
         got = kern()
+        check(hdp_z_cuda.launches_by_route["lanes"] == before["lanes"] + 1,
+              f"main shape {label}: not launched on the lanes route")
+        got_warp = earlier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = plain_fn(tokens, mask, z, u, *args_k.values(), kk=cfg.K,
                         emit_delta=True)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        for name, a, b in zip(("z", "m", "dn"), got, want):
-            err = max_int_err(a, b)
+        for name, a, b, c in zip(("z", "m", "dn"), got, want, got_warp):
+            err = max(max_int_err(a, b), max_int_err(c, b))
             worst = max(worst, err)
             check(torch.equal(a, b), f"main shape {label}: {name} differs (max {err})")
+            check(torch.equal(c, b), f"main shape {label}: warp route's {name} differs")
         n_in = H.count_n(z, tokens, mask, cfg.K, cfg.V)
         check(torch.equal(n_in + got[2], H.count_n(got[0], tokens, mask, cfg.K, cfg.V)),
               f"main shape {label}: n + dn != count_n(z_new)")
+        # the live slots of each word, and of each live token's word
+        live_w = (HZ.live_slots(args_k["vals"], apsi, args_k["ids"]) if in_kernel
+                  else HZ.live_slots(fpack[:, 0])).to(torch.int64)
+        live_t = live_w[tokens.to(torch.int64)][mask]
+        # the first walk reads 16-byte pieces of values and of ids
+        row_bytes = int(((live_t + 3) // 4).sum()) * 4 * 8
         ms = cuda_time_ms(kern, 5)
-        bound, by = sweep_bound_ms(d, l, cfg.K, cfg.V, w, live, in_kernel, True)
+        earlier_ms = cuda_time_ms(earlier, 3)
+        bound, by = sweep_bound_ms(d, l, cfg.K, cfg.V, w, live, in_kernel, True,
+                                   int(live_w.sum()), int(live_t.sum()))
         changed = int((got[0] != z)[mask].sum())
-        timing[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=by, changed_tokens=changed)
+        timing[label] = dict(
+            ms=ms, earlier_ms=earlier_ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, changed_tokens=changed,
+            live_slots_mean=float(live_t.float().mean()), live_slots_max=int(live_t.max()),
+            row_bytes_first_walk=row_bytes, row_bytes_warp=live * w * 8)
         print(f"[4] sweep at main shape, {label}, emit_delta: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms ({by}); "
-              f"changed tokens {changed} of {live}", flush=True)
+              f"earlier (warp route) {earlier_ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound:.4f} ms ({by}); live slots a token mean "
+              f"{timing[label]['live_slots_mean']:.2f}, max "
+              f"{timing[label]['live_slots_max']}; first walk reads {row_bytes} B of "
+              f"rows (warp route {live * w * 8} B); changed tokens {changed} of {live}",
+              flush=True)
 
     # The whole z-step of one iteration in either mode: supports and
     # prologue sweep, or tables (sort, alias build, q_a) and table sweep.
@@ -714,12 +796,16 @@ def main() -> int:
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
-        "source": "src/repro_torch/kernels/hdp_z/csrc/hdp_z.cu",
+        "source": "src/repro_torch/kernels/hdp_z/csrc/hdp_z_lanes.cu",
         "replaces": "src/repro/kernels/hdp_z/hdp_z.py:71",
-        "launches": main_launches, "max_abs_err": worst,
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "launches": main_launches, "launches_by_route": main_by_route,
+        "max_abs_err": worst,
+        "ms": main["ms"], "earlier_ms": main["earlier_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
+        # the earlier design, the warp route where the lanes one does not fit
+        "warp_source": "src/repro_torch/kernels/hdp_z/csrc/hdp_z.cu",
+        "live_slots_mean": main["live_slots_mean"], "live_slots_max": main["live_slots_max"],
         "other_inputs": {k: v for k, v in timing.items() if k != "prologue"},
         "z_step_ms": {"alias_in_kernel": z_step_ms["on"],
                       "tables_built_first": z_step_ms["off"]},

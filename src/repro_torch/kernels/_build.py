@@ -28,14 +28,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-# Each source's own flags, after NVCC_FLAGS. hdp_z builds without
-# multiply-add contraction, so that it matches its plain version bit for
-# bit (never --use_fast_math); the two CUDA-core LM kernels keep the
-# flags they were measured with. Other sources (the tensor-core flash
-# kernel) contract: they are held to their plain versions within stated
-# tolerances.
+# Each source's own flags, after NVCC_FLAGS. Both hdp_z kernels build
+# without multiply-add contraction, so that they match their plain
+# version bit for bit (never --use_fast_math); the two CUDA-core LM
+# kernels keep the flags they were measured with. Other sources (the
+# tensor-core flash kernel) contract: they are held to their plain
+# versions within stated tolerances.
 SOURCE_FLAGS = {
     "hdp_z.cu": ("--fmad=false",),
+    "hdp_z_lanes.cu": ("--fmad=false",),
     "flash_attention.cu": ("--fmad=false",),
     "ssd_chunk.cu": ("--fmad=false",),
 }

@@ -1,4 +1,8 @@
-// hdp_z: the doubly sparse HDP z-sweep on Hopper (sm_90a).
+// hdp_z: the doubly sparse HDP z-sweep on Hopper (sm_90a), one document
+// per warp. It is now the "warp" route of kernels/hdp_z/hdp_z.py, taken
+// only where the "lanes" route (csrc/hdp_z_lanes.cu, one document per
+// lane) does not fit: 32 documents' int16 m above the card's shared
+// memory per block, or L above 32767.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/hdp_z/hdp_z.py,
 // function _z_kernel (called through hdp_z_pallas), and computes what it

@@ -54,14 +54,14 @@ def train_hdp(
     alone: the clock runs from a synchronize before each iteration to one
     after it, and leaves out the logging and ``on_iteration(state,
     tokens, mask, cfg)``, which, when given, is called after every
-    iteration. On the card the kernel is built before the first
+    iteration. On the card the kernels are built before the first
     iteration. Returns the final state, the logged history and the
     printed summary.
     """
     corpus, cfg, tokens, mask, state = prepare_hdp(args)
     device = tokens.device
     if device.type == "cuda" and cfg.z_impl == "cuda":
-        _build.build(HZ.SOURCE)
+        _build.build_all(HZ.SOURCES)
 
     history = []
     dt = 0.0

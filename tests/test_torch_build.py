@@ -17,7 +17,15 @@ def test_hdp_z_builds_without_contraction():
     assert "--use_fast_math" not in flags
 
 
-@pytest.mark.parametrize("source", [HZ.SOURCE, *FA.SOURCES, SSD.SOURCE],
+def test_the_lanes_hdp_z_kernel_builds_without_contraction():
+    assert HZ.LANES_SOURCE.name == "hdp_z_lanes.cu"
+    flags = _build.nvcc_flags(HZ.LANES_SOURCE)
+    assert "--fmad=false" in flags and "--fmad=true" not in flags
+    assert "--use_fast_math" not in flags
+    assert set(HZ.SOURCES) == {HZ.SOURCE, HZ.LANES_SOURCE}
+
+
+@pytest.mark.parametrize("source", [*HZ.SOURCES, *FA.SOURCES, SSD.SOURCE],
                          ids=lambda p: p.name)
 def test_every_build_targets_sm90a_and_keeps_the_ptxas_report(source):
     flags = _build.nvcc_flags(source)
@@ -48,3 +56,16 @@ def test_the_report_is_read_from_beside_the_library(tmp_path, monkeypatch):
     assert lib.parent == tmp_path
     lib.with_suffix(".ptxas.txt").write_text("ptxas info : Used 96 registers\n")
     assert "96 registers" in _build.ptxas_report(FA.SM90_SOURCE)
+
+
+def test_the_lanes_ablation_patches_apply(tmp_path, monkeypatch):
+    from repro_torch.launch import ablate_hdp_z as A
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    sources = A.patched_sources()
+    assert set(sources) == {"kernel", *A.PATCHES}
+    text = HZ.LANES_SOURCE.read_text()
+    for name, path in sources.items():
+        assert path.name == HZ.LANES_SOURCE.name
+        assert (path.read_text() == text) == (name == "kernel")
+        assert _build.nvcc_flags(path) == _build.nvcc_flags(HZ.LANES_SOURCE)

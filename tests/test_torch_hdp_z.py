@@ -20,6 +20,7 @@ from repro.kernels.hdp_z import ops as JZ  # noqa: E402
 from repro.kernels.hdp_z import ref as JR  # noqa: E402
 from repro_torch.core import conformance as TC  # noqa: E402
 from repro_torch.core import hdp as TH  # noqa: E402
+from repro_torch.kernels.hdp_z import hdp_z as HZ  # noqa: E402
 from repro_torch.kernels.hdp_z import ops as TZ  # noqa: E402
 from repro_torch.kernels.hdp_z import ref as TR  # noqa: E402
 from repro_torch.kernels.hdp_z.hdp_z import hdp_z_cuda  # noqa: E402
@@ -192,6 +193,7 @@ def test_wrapper_on_cpu_runs_the_plain_version_without_launching():
     vals, ids = TZ.build_word_sparse_supports(T(phi), 8)
     apsi = torch.tensor(0.3) * T(psi)
     before = hdp_z_cuda.launches
+    before_routes = dict(hdp_z_cuda.launches_by_route)
     for emit in (False, True):
         got = hdp_z_cuda(*args, kk=12, q_a=q_a, fpack=fpack, ipack=ipack,
                          emit_delta=emit)
@@ -204,6 +206,7 @@ def test_wrapper_on_cpu_runs_the_plain_version_without_launching():
                                      emit_delta=emit)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert hdp_z_cuda.launches == before
+    assert hdp_z_cuda.launches_by_route == before_routes
     with pytest.raises(ValueError, match="exactly one"):
         hdp_z_cuda(*args, kk=12, q_a=q_a, fpack=fpack, ipack=ipack, apsi=apsi,
                    vals=vals, ids=ids)
@@ -242,3 +245,274 @@ def test_z_step_cuda_on_cpu_equals_reference_z_step():
                                   jnp.asarray(u), 16)[0])
     agree = ((got[0].numpy() == zj) | ~mask).mean()
     assert agree > 0.9
+
+
+# -- the lanes route: its choice, its live slots and its walks -----------------
+
+H100_SMEM_OPTIN = 232_448  # bytes a block may opt in to on an H100
+
+
+def test_route_takes_lanes_where_32_documents_fit():
+    r = HZ.route
+    for in_kernel in (True, False):
+        assert r(1000, 256, in_kernel, H100_SMEM_OPTIN) == "lanes"
+        assert r(1000, 2**15 - 1, in_kernel, H100_SMEM_OPTIN) == "lanes"
+        assert r(1000, 2**15, in_kernel, H100_SMEM_OPTIN) == "warp"
+        assert r(20_000, 256, in_kernel, H100_SMEM_OPTIN) == "warp"
+    # three warps a block at K=1000: each warp's 32 documents' uint16 m
+    # and its 32 x 33 int32 tile that stages m out, and apsi once
+    assert HZ.lanes_warps(1000, True, H100_SMEM_OPTIN) == 3
+    assert HZ.lanes_smem_bytes(1000, True, 3) == 3 * (64_000 + 4_224) + 4_000
+    kmax = max(k for k in range(1, 5000)
+               if HZ.lanes_smem_bytes(k, True) <= H100_SMEM_OPTIN)
+    assert kmax == 3356
+    assert r(kmax, 256, True, H100_SMEM_OPTIN) == "lanes"
+    assert r(kmax + 1, 256, True, H100_SMEM_OPTIN) == "warp"
+    assert r(kmax + 1, 256, False, H100_SMEM_OPTIN) == "lanes"
+
+
+@pytest.mark.parametrize("order", ["value", "topic"])
+def test_live_slots_of_word_sparse_supports(order):
+    k, w = 12, 6
+    phi = np.zeros((k, 5), np.float32)
+    phi[[1, 7], 1] = 0.5          # word 1: two topics
+    phi[[0, 3, 4, 9, 11], 2] = 0.1  # word 2: five topics
+    phi[:, 3] = 0.05              # word 3: every topic, W slots live
+    phi[5, 4] = 1.0               # word 4: one topic
+    vals, ids = TZ.build_word_sparse_supports(T(phi), w, order=order)
+    live = HZ.live_slots(vals)
+    assert live.dtype == torch.int32
+    nz = (vals != 0).numpy()
+    want = [int(np.nonzero(r)[0].max()) + 1 if r.any() else 0 for r in nz]
+    assert live.tolist() == want
+    assert live[0] == 0 and live[3] == w
+    if order == "value":
+        assert live.tolist() == [0, 2, 5, 6, 1]
+    else:  # zeros interleave before the last live slot
+        assert live[1] == 1 + int(np.searchsorted(ids[1].numpy(), 7))
+    # a NaN or inf value is live, wherever it sits
+    bad = vals.clone()
+    bad[0, 3] = float("nan")
+    bad[4, 5] = float("inf")
+    assert HZ.live_slots(bad)[[0, 4]].tolist() == [4, 6]
+    # prologue mode: a slot whose apsi[id] is not finite is live too
+    apsi = torch.ones(k)
+    assert torch.equal(HZ.live_slots(vals, apsi, ids), live)
+    apsi[int(ids[0, 2])] = float("inf")
+    got = HZ.live_slots(vals, apsi, ids)
+    assert got[0] == 3
+    apsi[int(ids[0, 2])] = float("nan")
+    assert HZ.live_slots(vals, apsi, ids)[0] == 3
+
+
+def _graded_phi(rng, k, v, w):
+    """A phi in which word j has j % (min(K, W) + 1) topics, so the words'
+    supports hold every count of live slots from 0 to W."""
+    phi = np.zeros((k, v), np.float32)
+    for j in range(v):
+        nnz = j % (min(k, w) + 1)
+        top = rng.choice(k, size=nnz, replace=False)
+        phi[top, j] = rng.integers(1, 5, nnz)
+    return (phi / np.maximum(phi.sum(1, keepdims=True), 1.0)).astype(np.float32)
+
+
+class _Walks:
+    """The lanes kernel (``csrc/hdp_z_lanes.cu``) one document and one
+    token at a time, every float op one float32 op in the kernel's order:
+    the walks stop at the word's live slots, the second term-(b) walk at
+    the first c >= t (while c is nondecreasing), and only the prologue's
+    global branch reaches past live, through the slots whose q is 0.
+    ``seen`` counts the paths taken."""
+
+    def __init__(self, w, live, vals, ids, apsi=None, aprob=None, aalias=None):
+        self.w, self.live, self.vals, self.ids = w, live, vals, ids
+        self.apsi, self.aprob, self.aalias = apsi, aprob, aalias
+        self.seen = dict.fromkeys(
+            ("doc", "early_stop", "global", "small_past_live", "small_live",
+             "large", "demote_past_live", "slots_read"), 0)
+
+    def q(self, v, j, total):
+        wa = self.vals[v, j] * self.apsi[self.ids[v, j]]
+        p = wa if (np.isfinite(wa) and wa > 0) else np.float32(0)
+        return p / max(total, np.float32(1e-30)) * np.float32(self.w)
+
+    def alias_entry(self, v, n, s, total):
+        f32, w = np.float32, self.w
+        if not total > 0:
+            return f32(1), s
+        dcum = ucum = qs = ds = us = f32(0)
+        next_large = -1
+        for j in range(n):
+            qj = self.q(v, j, total)
+            sm = qj < 1
+            dj, uj = (f32(1) - qj, f32(0)) if sm else (f32(0), qj - f32(1))
+            dcum = dj if j == 0 else dcum + dj
+            ucum = uj if j == 0 else ucum + uj
+            if j == s:
+                qs, ds, us = qj, dcum, ucum
+                if sm:
+                    break
+            elif j > s and not sm:
+                next_large = j
+                break
+        if s >= n:
+            ds = dcum
+            for j in range(n, s + 1):
+                ds = f32(1) if j == 0 else ds + f32(1)
+            qs = f32(0)
+            self.seen["small_past_live"] += 1
+        alias = s
+        if qs < 1:
+            self.seen["small_live"] += s < n
+            prob = qs
+            dprev = ds - (f32(1) - qs)
+            uc = f32(0)
+            for j in range(n):
+                qj = self.q(v, j, total)
+                uj = f32(0) if qj < 1 else qj - f32(1)
+                uc = uj if j == 0 else uc + uj
+                if not qj < 1 and not uc < dprev:
+                    alias = j
+                    break
+        else:
+            self.seen["large"] += 1
+            prob, dc, p2 = f32(1), f32(0), n
+            for j in range(n):
+                qj = self.q(v, j, total)
+                dj = f32(1) - qj if qj < 1 else f32(0)
+                dc = dj if j == 0 else dc + dj
+                if qj < 1 and not dc <= us:
+                    p2 = j
+                    break
+            if p2 == n:
+                while p2 < w:
+                    dc = f32(1) if p2 == 0 else dc + f32(1)
+                    if not dc <= us:
+                        self.seen["demote_past_live"] += 1
+                        break
+                    p2 += 1
+            if p2 < w:
+                prob = (f32(1) + us) - dc
+                if next_large >= 0:
+                    alias = next_large
+        return min(max(prob, f32(0)), f32(1)), alias
+
+    def sweep(self, tokens, mask, z, uniforms, kk, q_a=None):
+        f32, w = np.float32, self.w
+        prologue = self.apsi is not None
+        d, l = tokens.shape
+        z_new = z.copy()
+        m = np.zeros((d, kk), np.int64)
+        for doc in range(d):
+            np.add.at(m[doc], z[doc][mask[doc]], 1)
+            for i in range(l):
+                if not mask[doc, i]:
+                    continue
+                v, z_old = tokens[doc, i], z_new[doc, i]
+                n = int(self.live[v])
+                u1, u2, u3 = uniforms[doc, i]
+                m[doc, z_old] -= 1
+                md = m[doc]
+                qb, total, mono = f32(0), f32(0), True
+                qa = f32(0) if prologue else q_a[v]
+                for j in range(n):
+                    wb = self.vals[v, j] * f32(md[self.ids[v, j]])
+                    mono = mono and not wb < 0
+                    qb = wb if j == 0 else qb + wb
+                    if prologue:
+                        wa = self.vals[v, j] * self.apsi[self.ids[v, j]]
+                        p = wa if (np.isfinite(wa) and wa > 0) else f32(0)
+                        qa = wa if j == 0 else qa + wa
+                        total = p if j == 0 else total + p
+                self.seen["slots_read"] += n
+                tot = qa + qb
+                t = u1 * tot
+                k_new = z_old
+                if tot > 0:
+                    if t < qb or qa <= 0:
+                        self.seen["doc"] += 1
+                        c, cnt = f32(0), 0
+                        for j in range(n):
+                            wb = self.vals[v, j] * f32(md[self.ids[v, j]])
+                            c = wb if j == 0 else c + wb
+                            if c < t:
+                                cnt += 1
+                            elif mono:
+                                self.seen["early_stop"] += j < n - 1
+                                break
+                        k_new = self.ids[v, min(cnt, w - 1)]
+                    else:
+                        self.seen["global"] += 1
+                        s = min(int(u2 * f32(w)), w - 1)
+                        if prologue:
+                            prob, alias = self.alias_entry(v, n, s, total)
+                        else:
+                            prob, alias = self.aprob[v, s], self.aalias[v, s]
+                        k_new = self.ids[v, s if u3 < prob else alias]
+                m[doc, k_new] += 1
+                z_new[doc, i] = k_new
+        return z_new, m
+
+
+@pytest.mark.parametrize("order", ["value", "topic"])
+@pytest.mark.parametrize("k,w,alpha,inf_apsi", [
+    (8, 8, 2.0, False), (24, 16, 5.0, False), (257, 33, 1.0, False),
+    (64, 64, 2.0, True)])
+def test_lane_walks_bitwise_equal_plain_version(order, k, w, alpha, inf_apsi):
+    """The argument that makes the live-slot bound exact, checked on the
+    CPU: an emulation of the lanes kernel's walks, bounded by
+    ``live_slots``, against ``hdp_z_ref`` and ``hdp_z_ref_prologue``,
+    bitwise in z, m and dn, with words of every live count from 0 to W."""
+    rng = np.random.default_rng(k + w)
+    v, d, l = 2 * (min(k, w) + 1), 7, 20
+    phi = _graded_phi(rng, k, v, w)
+    psi = rng.dirichlet(np.ones(k)).astype(np.float32)
+    tokens = rng.integers(0, v, (d, l)).astype(np.int32)
+    mask = rng.random((d, l)) > 0.15
+    z0 = rng.integers(0, k, (d, l)).astype(np.int32)
+    u = rng.random((d, l, 3)).astype(np.float32)
+    tt = [T(a) for a in (tokens, mask, z0, u)]
+    apsi = torch.tensor(alpha, dtype=torch.float32) * T(psi)
+    if inf_apsi:  # a zero slot meets it: 0 * inf is NaN
+        apsi[int(np.nonzero(phi[:, 1] == 0)[0][0])] = float("inf")
+    vals, ids = TZ.build_word_sparse_supports(T(phi), w, order=order)
+    q_a, fpack, ipack = TZ.build_word_sparse_tables(T(phi), T(psi), alpha, w,
+                                                    order=order)
+    plain = {
+        "prologue": TR.hdp_z_ref_prologue(*tt, apsi, vals, ids, kk=k,
+                                          emit_delta=True),
+        "table": TR.hdp_z_ref(*tt, q_a, fpack, ipack, kk=k, emit_delta=True),
+    }
+    walks = {
+        "prologue": _Walks(w, HZ.live_slots(vals, apsi, ids).numpy(),
+                           vals.numpy(), ids.numpy(), apsi=apsi.numpy()),
+        "table": _Walks(w, HZ.live_slots(fpack[:, 0]).numpy(),
+                        fpack[:, 0].numpy(), ipack[:, 0].numpy(),
+                        aprob=fpack[:, 1].numpy(), aalias=ipack[:, 1].numpy()),
+    }
+    live = walks["table"].live
+    nnz = (vals != 0).sum(1).numpy()
+    assert set(nnz.tolist()) == set(range(min(k, w) + 1))
+    if order == "value":  # zeros trail: live is the support's size
+        assert np.array_equal(live, nnz)
+    else:  # zeros interleave before the last live slot
+        assert (live >= nnz).all() and (live > nnz).any()
+    with np.errstate(all="ignore"):
+        for mode, em in walks.items():
+            z_e, m_e = em.sweep(tokens, mask, z0, u, k,
+                                q_a=q_a.numpy() if mode == "table" else None)
+            z_p, m_p, dn_p = plain[mode]
+            assert np.array_equal(z_e, z_p.numpy()), mode
+            assert np.array_equal(m_e, m_p.numpy()), mode
+            dn_e = TH.delta_n(T(z0), T(z_e.astype(np.int32)), T(tokens),
+                              T(mask), k, v)
+            assert torch.equal(dn_e, dn_p), mode
+            assert em.seen["global"], (mode, em.seen)
+            assert em.seen["slots_read"] < int(mask.sum()) * w, (mode, em.seen)
+    seen = walks["prologue"].seen
+    assert walks["table"].seen["early_stop"] and seen["large"], seen
+    if not inf_apsi:  # else every word meeting the inf topic has q_a NaN or inf
+        assert seen["early_stop"] and seen["small_live"], seen
+    if order == "value":
+        assert seen["small_past_live"], seen
+    assert ((z_e != z0) & mask).any()
