@@ -35,9 +35,9 @@
 //     one document's row at a time, coalesced; dn by int32 atomicAdd,
 //     which commutes. z_out arrives as a copy of z_in, so only live
 //     positions are written.
-//  2. Loads run ahead of the chain: a document's topics and mask, then
-//     its tokens and uniforms, are asked into L2 at once; positions come
-//     4 at a time, 4 to 7 ahead; the next position's first 20 live slots
+//  2. Loads run ahead of the chain: a document's topics and mask 16
+//     positions at a time for the count; positions 4 at a time, 4 to 7
+//     ahead; the next position's uniforms and first 20 live slots
 //     (16-byte pieces where the row allows, VEC) are in flight in
 //     registers while this one is swept. The walks over those 20 slots
 //     are straight-line code (every gather issues at once); slots past
@@ -144,13 +144,6 @@ __device__ __forceinline__ int walk_rows(const float* __restrict__ fp,
 // place of a quarter-rate conversion.
 __device__ __forceinline__ float count_f(uint16_t m) {
   return __fsub_rn(__uint_as_float(0x4B000000u | m), 8388608.f);
-}
-
-// Asks for the 128-byte lines of [p, p + bytes) in L2, without waiting.
-__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  for (uintptr_t l = a & ~uintptr_t(127); l < a + bytes; l += 128)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(l));
 }
 
 // One position of a document.
@@ -417,12 +410,6 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) hdp_z_lanes_kernel(
   const int fstride = IN_KERNEL ? W : 2 * W;
   const float wf = (float)W;
 
-  // The document's topics and mask into L2 at once, so the loads of the
-  // count below wait for one memory latency, not one per batch.
-  if (doc < D) {
-    prefetch_l2(z_in + (int64_t)doc * L, (size_t)L * 4);
-    prefetch_l2(mask + (int64_t)doc * L, (size_t)L);
-  }
   // zero the warp's m (K * 32 uint16, a multiple of 16 bytes), together
   for (int q = lane; q < K * kLanes * 2 / 16; q += kLanes)
     reinterpret_cast<int4*>(mw)[q] = make_int4(0, 0, 0, 0);
@@ -449,9 +436,6 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) hdp_z_lanes_kernel(
           end = i0 + e + 1;
         }
     }
-    // The tokens and uniforms the sweep reads, into L2 at once.
-    prefetch_l2(tokens + row, (size_t)end * 4);
-    prefetch_l2(uni + row * 3, (size_t)end * 12);
 
     // Loads run ahead of the chain of dependent tokens: the positions a
     // batch of 4 at a time, 4 to 7 positions ahead; the live count of the

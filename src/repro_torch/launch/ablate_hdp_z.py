@@ -11,7 +11,6 @@ one lever undone, each built from a text patch of the source:
   prefixes again instead of reading the first walk's;
 - ``index_order``: documents go to lanes in index order, not longest
   first;
-- ``no_l2_prefetch``: no document is asked into L2 ahead;
 - ``group16``: 16 slots a position in registers, not 20.
 
 Each copy must give bitwise the kernel's z, m and dn. Inputs: the
@@ -55,11 +54,6 @@ PATCHES = {
     "index_order": [(
         "const int doc = doc0 + lane < D ? __ldg(order + doc0 + lane) : D;",
         "const int doc = doc0 + lane < D ? doc0 + lane : D;")],
-    "no_l2_prefetch": [
-        ("    prefetch_l2(z_in + (int64_t)doc * L, (size_t)L * 4);\n", ""),
-        ("    prefetch_l2(mask + (int64_t)doc * L, (size_t)L);\n", ""),
-        ("    prefetch_l2(tokens + row, (size_t)end * 4);\n", ""),
-        ("    prefetch_l2(uni + row * 3, (size_t)end * 12);\n", "")],
     "group16": [("constexpr int kGroup = 20;", "constexpr int kGroup = 16;")],
 }
 
