@@ -16,10 +16,9 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      odd D, L=24 (L=23 at W=33, where the lanes kernel reads positions
      and rows in scalars), ragged masked padding, words with zero mass
      and words with every count of live slots from 0 to W, all on the
-     lanes route; and
-     at K=4000, W=64 on the warp route; z, m and dn must be bitwise
-     equal, n + dn == count_n(z_new), and each launch takes the route
-     ``hdp_z.route`` gives;
+     lanes route; and at K=4000, W=64 on the warp route; z, m and dn
+     must be bitwise equal, n + dn == count_n(z_new), and each launch
+     takes the route ``hdp_z.route`` gives;
   3. main path: ``repro_torch.launch.train`` takes 3 Gibbs iterations
      on the synthetic PubMed replica at --scale 0.01 (81,999 documents,
      K=1000, W=256, alias built in the kernel); after every iteration

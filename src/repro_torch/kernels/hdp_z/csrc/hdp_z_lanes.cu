@@ -232,7 +232,8 @@ __device__ __noinline__ Entry alias_entry(const float* __restrict__ vrow,
                                           const float* __restrict__ apsi_s,
                                           int n, int W, int s, float total) {
   Entry r{1.f, s};
-  if (!(total > 0.f)) return r;  // every q = 1.0: every slot large, keeps itself
+  // total 0: every q = 1.0, every slot large, and each keeps itself
+  if (!(total > 0.f)) return r;
   const float wf = (float)W;
   // The lines up to s; for a large s, on to the next large.
   float dcum = 0.f, ucum = 0.f, qs = 0.f, ds = 0.f, us = 0.f;
@@ -386,7 +387,7 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) hdp_z_lanes_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // block: apsi (K f32, prologue mode) | per warp: m[K][32] int16 |
+  // block: apsi (K f32, prologue mode) | per warp: m[K][32] uint16 |
   // per warp: a 32 x 33 int32 staging tile for m out
   const float* apsi_s = reinterpret_cast<const float*>(smem);
   uint16_t* mw =
@@ -582,48 +583,44 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) hdp_z_lanes_kernel(
   }
 }
 
+// A launch's arguments, as the C entry point receives them.
+struct Args {
+  const void *tokens, *mask, *z_in, *uni, *q_a, *apsi, *fvals, *ivals,
+      *live, *order;
+  void *z_out, *m_out, *dn;
+  int D, L, K, V, W, warps;
+  bool vec_pos;
+};
+
 template <bool IN_KERNEL, bool EMIT, bool VEC>
-int launch(const void* tokens, const void* mask, const void* z_in,
-           const void* uni, const void* q_a, const void* apsi,
-           const void* fvals, const void* ivals, const void* live,
-           const void* order, void* z_out, void* m_out, void* dn, int D, int L, int K, int V,
-           int W, int warps, bool vec_pos, cudaStream_t stream) {
-  const size_t smem = (IN_KERNEL ? apsi_bytes(K) : 0) +
-                      (size_t)warps * (K * kLanes * sizeof(uint16_t) +
-                                       kStage * sizeof(int32_t));
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = (IN_KERNEL ? apsi_bytes(a.K) : 0) +
+                      (size_t)a.warps * (a.K * kLanes * sizeof(uint16_t) +
+                                         kStage * sizeof(int32_t));
   auto fn = hdp_z_lanes_kernel<IN_KERNEL, EMIT, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int docs_per_block = warps * kLanes;
-  const int grid = (D + docs_per_block - 1) / docs_per_block;
-  fn<<<grid, warps * kLanes, smem, stream>>>(
-      static_cast<const int32_t*>(tokens), static_cast<const uint8_t*>(mask),
-      static_cast<const int32_t*>(z_in), static_cast<const float*>(uni),
-      static_cast<const float*>(q_a), static_cast<const float*>(apsi),
-      static_cast<const float*>(fvals), static_cast<const int32_t*>(ivals),
-      static_cast<const int32_t*>(live), static_cast<const int32_t*>(order),
-      static_cast<int32_t*>(z_out),
-      static_cast<int32_t*>(m_out), static_cast<int32_t*>(dn), D, L, K, V, W,
-      vec_pos);
+  const int docs_per_block = a.warps * kLanes;
+  const int grid = (a.D + docs_per_block - 1) / docs_per_block;
+  fn<<<grid, a.warps * kLanes, smem, stream>>>(
+      static_cast<const int32_t*>(a.tokens),
+      static_cast<const uint8_t*>(a.mask),
+      static_cast<const int32_t*>(a.z_in), static_cast<const float*>(a.uni),
+      static_cast<const float*>(a.q_a), static_cast<const float*>(a.apsi),
+      static_cast<const float*>(a.fvals),
+      static_cast<const int32_t*>(a.ivals),
+      static_cast<const int32_t*>(a.live),
+      static_cast<const int32_t*>(a.order), static_cast<int32_t*>(a.z_out),
+      static_cast<int32_t*>(a.m_out), static_cast<int32_t*>(a.dn), a.D, a.L,
+      a.K, a.V, a.W, a.vec_pos);
   return (int)cudaGetLastError();
 }
 
 template <bool IN_KERNEL, bool EMIT>
-int launch_vec(bool vec_rows, bool vec_pos, const void* tokens,
-               const void* mask, const void* z_in, const void* uni,
-               const void* q_a, const void* apsi, const void* fvals,
-               const void* ivals, const void* live, const void* order,
-               void* z_out, void* m_out,
-               void* dn, int D, int L, int K, int V, int W, int warps,
-               cudaStream_t s) {
-  if (vec_rows)
-    return launch<IN_KERNEL, EMIT, true>(tokens, mask, z_in, uni, q_a, apsi,
-                                         fvals, ivals, live, order, z_out, m_out, dn,
-                                         D, L, K, V, W, warps, vec_pos, s);
-  return launch<IN_KERNEL, EMIT, false>(tokens, mask, z_in, uni, q_a, apsi,
-                                        fvals, ivals, live, order, z_out, m_out, dn,
-                                        D, L, K, V, W, warps, vec_pos, s);
+int launch_vec(bool vec_rows, const Args& a, cudaStream_t s) {
+  return vec_rows ? launch<IN_KERNEL, EMIT, true>(a, s)
+                  : launch<IN_KERNEL, EMIT, false>(a, s);
 }
 
 }  // namespace
@@ -646,30 +643,20 @@ int hdp_z_lanes_launch(const void* tokens, const void* mask,
                        const void* z_in, const void* uni, const void* q_a,
                        const void* apsi, const void* fvals,
                        const void* ivals, const void* live,
-                       const void* order, void* z_out,
-                       void* m_out, void* dn, int D, int L, int K, int V,
-                       int W, int warps, int vec_rows, int vec_pos,
-                       void* stream) {
+                       const void* order, void* z_out, void* m_out, void* dn,
+                       int D, int L, int K, int V, int W, int warps,
+                       int vec_rows, int vec_pos, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
-  const bool in_kernel = apsi != nullptr;
-  const bool emit = dn != nullptr;
-  const bool vr = vec_rows != 0, vp = vec_pos != 0;
-  if (in_kernel && emit)
-    return launch_vec<true, true>(vr, vp, tokens, mask, z_in, uni, q_a, apsi,
-                                  fvals, ivals, live, order, z_out, m_out, dn, D, L,
-                                  K, V, W, warps, s);
-  if (in_kernel)
-    return launch_vec<true, false>(vr, vp, tokens, mask, z_in, uni, q_a, apsi,
-                                   fvals, ivals, live, order, z_out, m_out, dn, D, L,
-                                   K, V, W, warps, s);
-  if (emit)
-    return launch_vec<false, true>(vr, vp, tokens, mask, z_in, uni, q_a, apsi,
-                                   fvals, ivals, live, order, z_out, m_out, dn, D, L,
-                                   K, V, W, warps, s);
-  return launch_vec<false, false>(vr, vp, tokens, mask, z_in, uni, q_a, apsi,
-                                  fvals, ivals, live, order, z_out, m_out, dn, D, L,
-                                  K, V, W, warps, s);
+  const Args a{tokens, mask, z_in, uni, q_a, apsi, fvals, ivals, live,
+               order, z_out, m_out, dn, D, L, K, V, W, warps,
+               vec_pos != 0};
+  const bool vr = vec_rows != 0;
+  if (apsi != nullptr)
+    return dn != nullptr ? launch_vec<true, true>(vr, a, s)
+                         : launch_vec<true, false>(vr, a, s);
+  return dn != nullptr ? launch_vec<false, true>(vr, a, s)
+                       : launch_vec<false, false>(vr, a, s);
 }
 
 }  // extern "C"

@@ -67,9 +67,14 @@ def _lib_lanes() -> ctypes.CDLL:
 def smem_limit(device: torch.device) -> int:
     """Largest dynamic shared memory one block may opt in to on
     ``device`` (232,448 bytes on an H100)."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
+    return _smem_limit(device.index if device.index is not None
+                       else torch.cuda.current_device())
+
+
+@functools.cache
+def _smem_limit(index: int) -> int:
     out = ctypes.c_int(0)
-    err = _lib_lanes().hdp_z_lanes_smem_limit(idx, ctypes.byref(out))
+    err = _lib_lanes().hdp_z_lanes_smem_limit(index, ctypes.byref(out))
     if err:
         raise RuntimeError(f"hdp_z: cudaDeviceGetAttribute failed ({err})")
     return out.value
@@ -213,7 +218,7 @@ def _launch(r: str, tokens, mask, z, uniforms, *, kk, q_a=None, fpack=None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if r == "lanes":
-            if not (l <= LANES_MAX_L and lanes_smem_bytes(kk, in_kernel) <= limit):
+            if route(kk, l, in_kernel, limit) != "lanes":
                 raise ValueError(
                     f"hdp_z (lanes): L={l} and K={kk} need L <= {LANES_MAX_L} "
                     f"and {lanes_smem_bytes(kk, in_kernel)} bytes of shared "
