@@ -5,11 +5,13 @@
 
 Phases, none wrapped in a ``try``; any failure exits non-zero:
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
-     five kernel sources (hdp_z_lanes and hdp_z, flash_attention on the
-     CUDA cores, flash_fwd_sm90 on the tensor cores, ssd_chunk) built
-     from ``csrc``, one nvcc each, all started together; the registers,
+     six kernel sources (hdp_z_lanes and hdp_z, flash_attention on the
+     CUDA cores, flash_fwd_sm90 on the tensor cores, ssd_chunk on the
+     CUDA cores, ssd_chunk_sm90 on the tensor cores) built from
+     ``csrc``, one nvcc each, all started together; the registers,
      spills (ptxas) and dynamic shared memory of the lanes hdp_z kernel
-     and of the tensor-core kernel;
+     and of the two tensor-core kernels, and the CTAs an SM holds of the
+     SSD one;
   2. hdp_z against its plain version on the card: every variant of
      emit_delta x prologue (in-kernel alias) mode at K in {2, 3, 257,
      1000} and W in {8, 33, 64, 256}, value- and topic-ordered tables,
@@ -46,15 +48,19 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      group 1, D=128 with a window), bf16 at D in {16, 32} and float32 on
      the CUDA-core route, each launch checked against its route; at the
      serving shape SDPA's error against the same plain version is
-     printed beside the kernel's; SSD at B=2,
-     S=1024, H=50, P=64, N=16, chunk 128 with B and C shared by all heads
-     (stride 0, as the model passes them) and at one odd shape (atol
-     2e-4, that of tests/test_ssd.py);
+     printed beside the kernel's; SSD (atol 2e-4 on y, st and dec, that
+     of tests/test_ssd.py), each launch on the route ``ssd.route``
+     gives: at B=2, S=1024, H=50, P=64, N=16, chunk 128 with B and C
+     shared by all heads (stride 0, as the model passes them); at the
+     serving shape (B=4, S=512) with B and C stride 0 and contiguous per
+     head, and with the model's dt and A; at S=128 (one chunk); at chunk
+     64; at one odd shape (P=24, N=12, chunk 40) on the tensor cores and
+     one (P=10, N=6, chunk 20) that the route leaves on the CUDA cores;
   6. the LM main path: ``repro_torch.launch.serve`` serves hymba-1.5b at
      full width (32 layers, d_model 1600, bf16 weights from a seed): 8
      requests of 512 tokens in batches of 4, 32 greedy tokens each; every
      logit finite, and each LM kernel launched 32 layers x 2 batches
-     times, every flash launch on the tensor-core route. Then the
+     times, every flash and SSD launch on the tensor-core route. Then the
      serving rates: 1 warm-up batch off the clock and 5 timed batches,
      each batch's prefill and decode tok/s listed with their spread. Then prefill/decode consistency in float32 at full
      width and depth 4: decode logits after a prefill of S against the
@@ -68,8 +74,12 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      device time under ``torch.profiler``, which is what the kernels
      line reports for them, since their host cost a call exceeds it
      (the line's ``earlier_ms`` is the CUDA-core kernel by events);
-     SSD also on dt and A as the model at init feeds them, held to its
-     plain version there too.
+     SSD by its device time under ``torch.profiler`` (the kernels line's
+     ``ms``), by events, and on dt and A as the model at init feeds them
+     (held to its plain version there too), beside the CUDA-core SSD
+     kernel, the earlier design, on the same inputs by events
+     (``earlier_ms``) and device time; the SSD bound prices the products
+     at three TF32 passes on the tensor cores.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -113,11 +123,14 @@ from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 from repro_torch.models.lm import CausalLM  # noqa: E402
 
-# H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak and
-# dense bf16 tensor-core peak.
+# H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak, and
+# dense bf16 and TF32 tensor-core peaks.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
+# float32 accuracy on the tensor cores takes three TF32 passes (3xTF32)
+TF32_PASSES = 3
 
 # hymba-1.5b serving on the main path (phase 6): batch, prompt, heads
 SERVE_B, SERVE_S = 4, 512
@@ -343,16 +356,21 @@ def flash_bound_ms(b, hq, hkv, s, d, itemsize, causal, window):
 def ssd_bound_ms(b, s, h, p, n, cl):
     """x in and y out (B, S, H, P), dt in and dec out (B, S, H), a (H,),
     B and C (B, S, N) shared by the heads, the states out (B, NC, H, N, P),
-    all float32 and moved once; per (batch, chunk, head) and pair i >= j
-    2N for C.B, 3 for the decay and its product, 2P for y; per row 2NP
-    for the state, P for x dt and N + 5 for the decays; at the float32
-    peak."""
+    all float32 and moved once. Per (batch, chunk, head) the products are
+    2N for C.B and 2P for y per pair i >= j, and 2NP for the state per
+    row, priced at the best float32-accurate rate the card has: three
+    TF32 passes at the tensor-core peak. The elementwise work (3 a pair
+    for the decay and its product; P for x dt and N + 5 for the decays a
+    row) stays at the float32 peak."""
     nc = s // cl
     nbytes = 4 * (2 * b * s * h * p + 2 * b * s * h + h + 2 * b * s * n
                   + b * nc * h * n * p)
     pairs = cl * (cl + 1) // 2
-    ops = b * nc * h * (pairs * (2 * n + 3 + 2 * p) + cl * (2 * n * p + p + n + 5))
-    return bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    products = b * nc * h * (pairs * (2 * n + 2 * p) + cl * 2 * n * p)
+    elementwise = b * nc * h * (pairs * 3 + cl * (p + n + 5))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (products * TF32_PASSES / TF32_OPS_PER_S + elementwise / FP32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def flash_inputs(gen, b, hq, hkv, s, d, dtype):
@@ -392,33 +410,52 @@ def check_flash(gen, b, hq, hkv, s, d, dtype, causal, window, sdpa=False):
     return err, lib_err
 
 
-def ssd_inputs(gen, b, s, h, p, n):
+def ssd_inputs(gen, b, s, h, p, n, shared=True, model=False):
     """x, dt, a as in tests/test_ssd.py; B and C (B, S, N) shared by
-    the heads, as stride-0 views, as the model passes them."""
+    the heads, as stride-0 views, as the model passes them (or, without
+    ``shared``, contiguous per head). With ``model``, dt and A as the
+    model at init feeds them: A = -linspace(1, 16, H) and dt the softplus
+    of a unit-variance projection, so cum reaches about -1400 within a
+    chunk and exp(cum) underflows."""
     dev = "cuda"
     x = torch.randn((b, s, h, p), generator=gen, device=dev)
     dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.19 + 0.01
     a = -(torch.rand((h,), generator=gen, device=dev) * 1.5 + 0.5)
-    bm, cm = (torch.randn((b, s, n), generator=gen, device=dev)[:, :, None, :]
-              .expand(b, s, h, n) for _ in range(2))
+    if shared:
+        bm, cm = (torch.randn((b, s, n), generator=gen, device=dev)[:, :, None, :]
+                  .expand(b, s, h, n) for _ in range(2))
+    else:
+        bm, cm = (torch.randn((b, s, h, n), generator=gen, device=dev) for _ in range(2))
+    if model:
+        dt = F.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
     return x, dt, a, bm, cm
 
 
-def check_ssd(gen, b, s, h, p, n, cl) -> float:
-    args = ssd_inputs(gen, b, s, h, p, n)
+def check_ssd(gen, b, s, h, p, n, cl, shared=True, model=False) -> float:
+    """Kernel against plain version on one case, the launch on the route
+    ``SSD.route`` gives; returns the largest error over y, st and dec."""
+    args = ssd_inputs(gen, b, s, h, p, n, shared, model)
+    route = SSD.route(cl, n, p)
     before = SSD.ssd_intra_chunk.launches
+    before_route = SSD.ssd_intra_chunk.launches_by_route[route]
     got = SSD.ssd_intra_chunk(*args, chunk=cl)
     torch.cuda.synchronize()
     want = ssd_intra_chunk_ref(*args, chunk=cl)
-    tag = f"ssd B={b} S={s} H={h} P={p} N={n} chunk={cl}"
+    tag = (f"ssd B={b} S={s} H={h} P={p} N={n} chunk={cl} "
+           f"{'B, C stride 0' if shared else 'B, C per head'}"
+           f"{', model dt and A' if model else ''}")
     check(SSD.ssd_intra_chunk.launches == before + 1, f"{tag}: no launch")
+    check(SSD.ssd_intra_chunk.launches_by_route[route] == before_route + 1,
+          f"{tag}: not launched on the {route} route")
     err = 0.0
     for name, a, w in zip(("y", "st", "dec"), got, want):
         check(a.shape == w.shape, f"{tag}: {name} shape")
         e = float((a - w).abs().max())
         check(e <= SSD_ATOL, f"{tag}: {name} max error {e} > {SSD_ATOL}")
         err = max(err, e)
-    print(f"[5] {tag}: max |kernel - plain| {err:.3g} over y, st, dec", flush=True)
+    print(f"[5] {tag} ({route}): max |kernel - plain| {err:.3g} over y, st, dec",
+          flush=True)
     return err
 
 
@@ -436,13 +473,13 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    sources = [*HZ.SOURCES, *FA.SOURCES, SSD.SOURCE]
+    sources = [*HZ.SOURCES, *FA.SOURCES, *SSD.SOURCES]
     paths = _build.build_all(sources)
     print(f"[1] built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
               f"{src.name} {_build.BUILD_SECONDS.get(src.name, 0.0):.2f} s"
               for src in sources) + ")", flush=True)
-    for src in (HZ.LANES_SOURCE, FA.SM90_SOURCE):
+    for src in (HZ.LANES_SOURCE, FA.SM90_SOURCE, SSD.SM90_SOURCE):
         report = _build.ptxas_report(src)
         check("registers" in report, f"no ptxas report for {src.name}")
         for line in report.splitlines():
@@ -456,6 +493,17 @@ def main() -> int:
     print("[1] flash_fwd_sm90 dynamic shared memory per CTA: " + ", ".join(
         f"D={d} {FA.sm90_smem_bytes(d)} B" for d in FA.TENSOR_CORE_HEAD_DIMS),
         flush=True)
+    lm_cfg = get_config("hymba-1.5b")
+    n_ssd = lm_cfg.ssm_state
+    h_ssd = lm_cfg.ssm_expand * lm_cfg.d_model // lm_cfg.ssm_head_dim
+    ssd_shape = (lm_cfg.ssd_chunk, n_ssd, lm_cfg.ssm_head_dim)
+    ssd_smem = SSD._lib_sm90().ssd_chunk_sm90_smem_bytes(*ssd_shape)
+    check(ssd_smem == SSD.sm90_smem_bytes(*ssd_shape),
+          f"ssd_chunk_sm90 shared memory {ssd_smem} B, the wrapper counts "
+          f"{SSD.sm90_smem_bytes(*ssd_shape)}")
+    print(f"[1] ssd_chunk_sm90 at chunk {ssd_shape[0]}, N={n_ssd}, "
+          f"P={lm_cfg.ssm_head_dim}: {ssd_smem} B of dynamic shared memory a CTA, "
+          f"{SSD.sm90_ctas_per_sm(*ssd_shape)} CTAs an SM", flush=True)
 
     # ---- 2. kernel against plain version, small shapes -----------------
     rng = np.random.default_rng(0)
@@ -618,7 +666,6 @@ def main() -> int:
     # ---- 5. LM kernels against their plain versions ----------------------
     gen = torch.Generator(device=dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
-    lm_cfg = get_config("hymba-1.5b")
     hq, hkv, hd, win = (lm_cfg.num_heads, lm_cfg.num_kv_heads, lm_cfg.head_dim,
                         lm_cfg.window)
     # the prefill shape; window 2048 > S, so SDPA's causal attention is
@@ -644,12 +691,20 @@ def main() -> int:
         (2, 4, 2, 300, 32, bf16, True, 100),
         (1, 6, 3, 70, 16, bf16, False, None),
     )])
-    n_ssd = lm_cfg.ssm_state
-    h_ssd = lm_cfg.ssm_expand * lm_cfg.d_model // lm_cfg.ssm_head_dim
-    ssd_err = max(check_ssd(gen, *case) for case in (
-        (2, 1024, h_ssd, lm_cfg.ssm_head_dim, n_ssd, lm_cfg.ssd_chunk),
-        (1, 200, 3, 24, 12, 40),                              # odd shape
+    p_ssd, cl_ssd = lm_cfg.ssm_head_dim, lm_cfg.ssd_chunk
+    ssd_err = max(check_ssd(gen, *case[:6], **case[6]) for case in (
+        (2, 1024, h_ssd, p_ssd, n_ssd, cl_ssd, {}),
+        # the serving shape, B and C stride 0 and per head; model dt, A
+        (SERVE_B, SERVE_S, h_ssd, p_ssd, n_ssd, cl_ssd, {}),
+        (SERVE_B, SERVE_S, h_ssd, p_ssd, n_ssd, cl_ssd, {"shared": False}),
+        (SERVE_B, SERVE_S, h_ssd, p_ssd, n_ssd, cl_ssd, {"model": True}),
+        (2, cl_ssd, h_ssd, p_ssd, n_ssd, cl_ssd, {}),         # one chunk
+        (2, SERVE_S, h_ssd, p_ssd, n_ssd, 64, {"model": True}),   # chunk 64
+        (1, 200, 3, 24, 12, 40, {}),                          # odd shape
+        (1, 100, 3, 10, 6, 20, {}),                           # CUDA-core route
     ))
+    check(SSD.route(*ssd_shape) == "tensor_cores"
+          and SSD.route(20, 6, 10) == "cuda_cores", "ssd: unexpected routes")
 
     # ---- 6. LM main path: hymba-1.5b serving at full width --------------
     serve_args = SV.build_parser().parse_args([
@@ -658,16 +713,21 @@ def main() -> int:
     FA.flash_attention.launches = 0
     FA.flash_attention.launches_by_route.update(dict.fromkeys(FA.ROUTES, 0))
     SSD.ssd_intra_chunk.launches = 0
+    SSD.ssd_intra_chunk.launches_by_route.update(dict.fromkeys(SSD.ROUTES, 0))
     outputs, served = SV.serve(serve_args)
     fa_launches = FA.flash_attention.launches
     fa_by_route = dict(FA.flash_attention.launches_by_route)
     ssd_launches = SSD.ssd_intra_chunk.launches
+    ssd_by_route = dict(SSD.ssd_intra_chunk.launches_by_route)
     want_launches = lm_cfg.num_layers * 2  # layers x batches
     check(fa_launches == want_launches and ssd_launches == want_launches,
           f"serve: flash {fa_launches}, ssd {ssd_launches} launches, "
           f"expected {want_launches} each")
     check(fa_by_route["tensor_cores"] == want_launches,
           f"serve: flash launches by route {fa_by_route}, expected all "
+          f"{want_launches} on tensor_cores")
+    check(ssd_by_route == {"tensor_cores": want_launches, "cuda_cores": 0},
+          f"serve: ssd launches by route {ssd_by_route}, expected all "
           f"{want_launches} on tensor_cores")
     check(served["logits_finite"], "serve: a logit is not finite")
     check(len(outputs) == 8 and all(len(o) == 32 for o in outputs),
@@ -676,7 +736,8 @@ def main() -> int:
           "serve: a token outside the vocabulary")
     print(f"[6] served hymba-1.5b (32 layers, d_model 1600, bf16): 8 requests, "
           f"batch {SERVE_B}, prompt {SERVE_S}, gen 32; launches flash "
-          f"{fa_launches} (by route {fa_by_route}), ssd {ssd_launches}", flush=True)
+          f"{fa_launches} (by route {fa_by_route}), ssd {ssd_launches} (by route "
+          f"{ssd_by_route})", flush=True)
 
     # The serving rates: one warm-up batch off the clock, then
     # RATE_BATCHES timed batches, each batch's rate listed.
@@ -759,38 +820,51 @@ def main() -> int:
           flush=True)
 
     cl = lm_cfg.ssd_chunk
-    sargs = ssd_inputs(gen, SERVE_B, SERVE_S, h_ssd, lm_cfg.ssm_head_dim, n_ssd)
-    got = SSD.ssd_intra_chunk(*sargs, chunk=cl)
-    want = ssd_intra_chunk_ref(*sargs, chunk=cl)
-    for name, a, w in zip(("y", "st", "dec"), got, want):
-        e = float((a - w).abs().max())
-        check(e <= SSD_ATOL, f"ssd at the serving shape: {name} max error {e}")
-        ssd_err = max(ssd_err, e)
+    sargs = ssd_inputs(gen, SERVE_B, SERVE_S, h_ssd, p_ssd, n_ssd)
+    margs = ssd_inputs(gen, SERVE_B, SERVE_S, h_ssd, p_ssd, n_ssd, model=True)
+    for label, args_ in (("the serving shape", sargs), ("the model's dt and A", margs)):
+        want = ssd_intra_chunk_ref(*args_, chunk=cl)
+        got = SSD.ssd_intra_chunk(*args_, chunk=cl)
+        # the CUDA-core kernel on the same inputs: the earlier design,
+        # timed in this call (these launches are off the main path)
+        core = SSD._launch("cuda_cores", *args_, cl)
+        for name, a, c, w in zip(("y", "st", "dec"), got, core, want):
+            e = float((a - w).abs().max())
+            check(e <= SSD_ATOL, f"ssd at {label}: {name} max error {e}")
+            e_core = float((c - w).abs().max())
+            check(e_core <= SSD_ATOL, f"ssd_chunk.cu at {label}: {name} max error {e_core}")
+            ssd_err = max(ssd_err, e)
+    ssd_fn = lambda: SSD.ssd_intra_chunk(*sargs, chunk=cl)  # noqa: E731
+    ssd_core_fn = lambda: SSD._launch("cuda_cores", *sargs, cl)  # noqa: E731
+    # ms is the kernel's device time under the profiler: its host cost a
+    # call may exceed it, as flash's does; the event times stand beside
     ssd_t = dict(
-        ms=cuda_time_ms(lambda: SSD.ssd_intra_chunk(*sargs, chunk=cl), 20),
+        ms=device_time_ms(ssd_fn, 50, per_call=1),
+        event_ms=cuda_time_ms(ssd_fn, 20),
         plain_ms=cuda_time_ms(lambda: ssd_intra_chunk_ref(*sargs, chunk=cl), 5),
         library_ms=None,
-        host_ms=host_time_ms(lambda: SSD.ssd_intra_chunk(*sargs, chunk=cl), 20))
+        host_ms=host_time_ms(ssd_fn, 20),
+        model_inputs_ms=device_time_ms(
+            lambda: SSD.ssd_intra_chunk(*margs, chunk=cl), 50, per_call=1),
+        model_inputs_event_ms=cuda_time_ms(
+            lambda: SSD.ssd_intra_chunk(*margs, chunk=cl), 20),
+        # the earlier design (ssd_chunk.cu) on the same inputs, by events
+        # (the yardstick its 0.3280 ms was taken by) and device time
+        earlier_ms=cuda_time_ms(ssd_core_fn, 20),
+        earlier_device_ms=device_time_ms(ssd_core_fn, 20, per_call=1))
+    ssd_t["device_time_ms"] = ssd_t["ms"]
     ssd_t["bound_ms"], ssd_t["bound_by"] = ssd_bound_ms(
-        SERVE_B, SERVE_S, h_ssd, lm_cfg.ssm_head_dim, n_ssd, cl)
-    # dt and A as the model at init feeds them: A = -linspace(1, 16, H)
-    # and dt the softplus of a unit-variance projection, so exp(cum)
-    # underflows within a chunk; the kernel's time should not move.
-    margs = list(sargs)
-    margs[1] = torch.logaddexp(torch.randn(margs[1].shape, generator=gen, device=dev),
-                               torch.zeros((), device=dev))
-    margs[2] = -torch.linspace(1.0, 16.0, h_ssd, device=dev)
-    for name, a, w in zip(("y", "st", "dec"), SSD.ssd_intra_chunk(*margs, chunk=cl),
-                          ssd_intra_chunk_ref(*margs, chunk=cl)):
-        e = float((a - w).abs().max())
-        check(e <= SSD_ATOL, f"ssd on the model's dt and A: {name} max error {e}")
-        ssd_err = max(ssd_err, e)
-    ssd_t["model_inputs_ms"] = cuda_time_ms(lambda: SSD.ssd_intra_chunk(*margs, chunk=cl), 20)
-    print(f"[7] ssd_chunk B={SERVE_B} S={SERVE_S} H={h_ssd} P={lm_cfg.ssm_head_dim} "
-          f"N={n_ssd} chunk={cl}: kernel {ssd_t['ms']:.4f} ms (host "
-          f"{ssd_t['host_ms']:.4f} ms a call), plain {ssd_t['plain_ms']:.4f} ms, "
-          f"bound {ssd_t['bound_ms']:.4f} ms ({ssd_t['bound_by']}); kernel "
-          f"{ssd_t['model_inputs_ms']:.4f} ms on the model's dt and A", flush=True)
+        SERVE_B, SERVE_S, h_ssd, p_ssd, n_ssd, cl)
+    print(f"[7] ssd_chunk_sm90 B={SERVE_B} S={SERVE_S} H={h_ssd} P={p_ssd} "
+          f"N={n_ssd} chunk={cl} f32, device time: kernel {ssd_t['ms']:.4f} ms, "
+          f"{ssd_t['model_inputs_ms']:.4f} ms on the model's dt and A, CUDA-core "
+          f"kernel {ssd_t['earlier_device_ms']:.4f} ms, bound {ssd_t['bound_ms']:.5f} "
+          f"ms ({ssd_t['bound_by']}; products at {TF32_PASSES} TF32 passes on the "
+          f"tensor cores); by events back to back: kernel {ssd_t['event_ms']:.4f} "
+          f"ms (host {ssd_t['host_ms']:.4f} ms a call), "
+          f"{ssd_t['model_inputs_event_ms']:.4f} ms on the model's dt and A, "
+          f"CUDA-core kernel {ssd_t['earlier_ms']:.4f} ms, plain "
+          f"{ssd_t['plain_ms']:.4f} ms", flush=True)
 
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
@@ -819,10 +893,13 @@ def main() -> int:
         "shape": f"B={SERVE_B} S={SERVE_S} Hq={hq} Hkv={hkv} D={hd} bf16 causal window={win}",
     }, {
         "name": "ssd_chunk", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk_sm90.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:31",
-        "launches": ssd_launches, "max_abs_err": ssd_err, **ssd_t,
-        "shape": f"B={SERVE_B} S={SERVE_S} H={h_ssd} P={lm_cfg.ssm_head_dim} N={n_ssd} chunk={cl} f32",
+        "launches": ssd_launches, "launches_by_route": ssd_by_route,
+        "max_abs_err": ssd_err, **ssd_t,
+        # the earlier design, the route of shapes the tensor-core one refuses
+        "cuda_core_source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
+        "shape": f"B={SERVE_B} S={SERVE_S} H={h_ssd} P={p_ssd} N={n_ssd} chunk={cl} f32",
     }], "serve": {**{k: rates[k] for k in (
         "prefill_tok_s", "decode_tok_s", "prefill_tok_s_per_batch",
         "decode_tok_s_per_batch", "warmup_batches")},

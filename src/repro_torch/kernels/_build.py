@@ -31,14 +31,16 @@ NVCC_FLAGS = (
 # Each source's own flags, after NVCC_FLAGS. Both hdp_z kernels build
 # without multiply-add contraction, so that they match their plain
 # version bit for bit (never --use_fast_math); the two CUDA-core LM
-# kernels keep the flags they were measured with. Other sources (the
-# tensor-core flash kernel) contract: they are held to their plain
-# versions within stated tolerances.
+# kernels keep the flags they were measured with. The tensor-core SSD
+# kernel contracts (its sequential cum uses _rn intrinsics, which never
+# fuse), and so do other sources (the tensor-core flash kernel): they
+# are held to their plain versions within stated tolerances.
 SOURCE_FLAGS = {
     "hdp_z.cu": ("--fmad=false",),
     "hdp_z_lanes.cu": ("--fmad=false",),
     "flash_attention.cu": ("--fmad=false",),
     "ssd_chunk.cu": ("--fmad=false",),
+    "ssd_chunk_sm90.cu": ("--fmad=true",),
 }
 DEFAULT_SOURCE_FLAGS = ("--fmad=true",)
 

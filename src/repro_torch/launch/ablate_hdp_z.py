@@ -58,24 +58,30 @@ PATCHES = {
 }
 
 
-def patched_sources() -> dict[str, Path]:
-    """The kernel's source and its patched copies, each in its own
-    directory under the build directory (the build flags go by file
-    name, so every copy keeps the source's)."""
-    text = HZ.LANES_SOURCE.read_text()
-    out = {"kernel": HZ.LANES_SOURCE}
-    for name, edits in PATCHES.items():
+def patch_copies(source: Path, patches: dict, subdir: str) -> dict[str, Path]:
+    """``source`` and its copies with each patch of ``patches`` (name to
+    a list of (old, new) text edits, each old text found once) applied,
+    each in its own directory under the build directory's ``subdir``
+    (the build flags go by file name, so every copy keeps the
+    source's)."""
+    text = source.read_text()
+    out = {"kernel": source}
+    for name, edits in patches.items():
         body = text
         for old, new in edits:
             if body.count(old) != 1:
-                raise SystemExit(f"error: patch {name!r} does not apply to "
-                                 f"{HZ.LANES_SOURCE.name}")
+                raise SystemExit(f"error: patch {name!r} does not apply to {source.name}")
             body = body.replace(old, new)
-        path = _build.BUILD_DIR / "ablate" / name / HZ.LANES_SOURCE.name
+        path = _build.BUILD_DIR / subdir / name / source.name
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(body)
         out[name] = path
     return out
+
+
+def patched_sources() -> dict[str, Path]:
+    """The lanes kernel's source and its patched copies."""
+    return patch_copies(HZ.LANES_SOURCE, PATCHES, "ablate")
 
 
 def cuda_time_ms(fn, reps: int) -> float:

@@ -64,7 +64,7 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("error: profile_serve measures the card; no CUDA device is present")
     cfg = get_config(args.arch)
     dev = torch.device("cuda")
-    _build.build_all([*FA.SOURCES, SSD.SOURCE])
+    _build.build_all([*FA.SOURCES, *SSD.SOURCES])
     model = CausalLM(cfg, torch.Generator(device=dev).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
     serve_queue(model, RequestQueue(rng, args.warmup * args.batch, cfg.vocab_size,

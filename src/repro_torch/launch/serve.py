@@ -131,7 +131,7 @@ def serve(args: argparse.Namespace):
         raise ValueError(f"{args.requests} requests leave no batch to time after "
                          f"{WARMUP_BATCHES} warm-up batch of {args.batch}")
     if device.type == "cuda":
-        _build.build_all([*FA.SOURCES, SSD.SOURCE])
+        _build.build_all([*FA.SOURCES, *SSD.SOURCES])
     model = CausalLM(cfg, torch.Generator(device=device).manual_seed(args.seed))
     queue = RequestQueue(np.random.default_rng(args.seed), args.requests,
                          cfg.vocab_size, args.prompt_len)

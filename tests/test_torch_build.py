@@ -25,7 +25,7 @@ def test_the_lanes_hdp_z_kernel_builds_without_contraction():
     assert set(HZ.SOURCES) == {HZ.SOURCE, HZ.LANES_SOURCE}
 
 
-@pytest.mark.parametrize("source", [*HZ.SOURCES, *FA.SOURCES, SSD.SOURCE],
+@pytest.mark.parametrize("source", [*HZ.SOURCES, *FA.SOURCES, *SSD.SOURCES],
                          ids=lambda p: p.name)
 def test_every_build_targets_sm90a_and_keeps_the_ptxas_report(source):
     flags = _build.nvcc_flags(source)
@@ -36,6 +36,17 @@ def test_every_build_targets_sm90a_and_keeps_the_ptxas_report(source):
 
 def test_the_tensor_core_flash_kernel_contracts():
     assert "--fmad=true" in _build.nvcc_flags(FA.SM90_SOURCE)
+
+
+def test_the_tensor_core_ssd_kernel_contracts_and_is_built_beside_the_other():
+    assert SSD.SM90_SOURCE.name == "ssd_chunk_sm90.cu"
+    assert _build.SOURCE_FLAGS["ssd_chunk_sm90.cu"] == ("--fmad=true",)
+    flags = _build.nvcc_flags(SSD.SM90_SOURCE)
+    assert "--fmad=true" in flags and "--use_fast_math" not in flags
+    # the CUDA-core kernel keeps the flags it was measured with
+    assert "--fmad=false" in _build.nvcc_flags(SSD.SOURCE)
+    assert SSD.SOURCES == (SSD.SOURCE, SSD.SM90_SOURCE)
+    assert all(src.exists() for src in SSD.SOURCES)
 
 
 def test_a_change_of_flags_changes_the_library_path(monkeypatch):
@@ -69,3 +80,17 @@ def test_the_lanes_ablation_patches_apply(tmp_path, monkeypatch):
         assert path.name == HZ.LANES_SOURCE.name
         assert (path.read_text() == text) == (name == "kernel")
         assert _build.nvcc_flags(path) == _build.nvcc_flags(HZ.LANES_SOURCE)
+
+
+def test_the_ssd_ablation_patches_apply(tmp_path, monkeypatch):
+    from repro_torch.launch import ablate_ssd as A
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    sources = A.patched_sources()
+    assert set(sources) == {"kernel", *A.PATCHES}
+    assert set(A.HELD) == set(sources) - {"one_pass"}
+    text = SSD.SM90_SOURCE.read_text()
+    for name, path in sources.items():
+        assert path.name == SSD.SM90_SOURCE.name
+        assert (path.read_text() == text) == (name == "kernel")
+        assert _build.nvcc_flags(path) == _build.nvcc_flags(SSD.SM90_SOURCE)

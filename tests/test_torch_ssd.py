@@ -1,10 +1,13 @@
 """The port's SSD against the reference's.
 
 On this CPU the wrapper ``ssd_intra_chunk`` runs its plain version
-(``ssd_intra_chunk_ref``); the CUDA kernel is held against that plain
-version on the card by ``chip_smoke.py``. Inputs come from numpy seeds
-and reach both frameworks as the same float32 arrays. The tolerance is
-that of ``tests/test_ssd.py``: atol 2e-4 (1e-4 for the decode step).
+(``ssd_intra_chunk_ref``); the CUDA kernels are held against that plain
+version on the card by ``chip_smoke.py``. Here the tensor-core kernel's
+arithmetic (three TF32 passes, the masked scaling in registers) is
+emulated and held to JAX, and its route and operand checks are tested.
+Inputs come from numpy seeds and reach both frameworks as the same
+float32 arrays. The tolerance is that of ``tests/test_ssd.py``: atol
+2e-4 (1e-4 for the decode step).
 """
 
 import numpy as np
@@ -21,7 +24,8 @@ from repro.kernels.ssd.ssd import ssd_intra_chunk as jax_intra  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd, ssd_decode_step  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
     ssd_chunked, ssd_intra_chunk_ref, ssd_ref)
-from repro_torch.kernels.ssd.ssd import ssd_intra_chunk  # noqa: E402
+from repro_torch.kernels.ssd.ssd import (  # noqa: E402
+    check_operands, route, sm90_smem_bytes, ssd_intra_chunk)
 
 ATOL = 2e-4
 SHAPES = [  # the parameter sets of tests/test_ssd.py: b, s, h, p, n, chunk
@@ -141,5 +145,250 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     for g, w in zip(got, ssd_intra_chunk_ref(*tx, chunk=8)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert ssd_intra_chunk.launches == before == 0
+    assert sum(ssd_intra_chunk.launches_by_route.values()) == 0
     with pytest.raises(ValueError, match="must divide"):
         ssd_intra_chunk(*tx, chunk=5)
+
+
+# -- the tensor-core kernel's arithmetic, its route and its operands ----------
+#
+# ``csrc/ssd_chunk_sm90.cu`` cannot run here; what it computes can. Each
+# operand v of its three products is split into hi, v rounded to tf32 as
+# cvt.rna.tf32.f32 rounds it, and lo = v - hi, of which the tensor core
+# reads all but the low 13 bits; a product is lo.hi + hi.lo + hi.hi
+# (summed here in float64). The scores are G * (2^((cum_i - cum_j) log2 e)
+# * dt_j), masked to 0 for j > i before the exp.
+
+LOG2E = 1.4426950408889634
+TF32_DROPPED = 0x1FFF  # the 13 low mantissa bits TF32 does not hold
+
+
+def tf32_split(v: torch.Tensor):
+    """(hi, lo) of float32 ``v``: hi rounded to tf32 to nearest, ties away
+    from zero (cvt.rna.tf32.f32), and lo = v - hi exactly."""
+    bits = v.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~TF32_DROPPED).view(torch.float32)
+    return hi, v - hi
+
+
+def tensor_core_reads(v: torch.Tensor) -> torch.Tensor:
+    """The tf32 value the tensor core reads from a float32 register."""
+    return (v.contiguous().view(torch.int32) & ~TF32_DROPPED).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b in three TF32 passes, as the kernel's products take it (or,
+    with ``passes=1``, hi.hi alone)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+
+    def mm(u, v):
+        return torch.matmul(tensor_core_reads(u).double(), tensor_core_reads(v).double())
+
+    out = mm(ah, bh) if passes == 1 else mm(al, bh) + mm(ah, bl) + mm(ah, bh)
+    return out.float()
+
+
+def emulate_tensor_core_kernel(x, dt, a, bmat, cmat, *, chunk, cum=None, passes=3):
+    """The kernel's arithmetic on the CPU: cum the sequential float32 sum
+    (or ``cum`` (B, NC, H, CL) as given), then G, y and st in three TF32
+    passes (or ``passes``) with the masked in-register scaling. Returns
+    (y, st, dec) as ``ssd_intra_chunk``."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    nc, cl = s // chunk, chunk
+    xr = x.reshape(b, nc, cl, h, p).permute(0, 1, 3, 2, 4)
+    dtr = dt.reshape(b, nc, cl, h).permute(0, 1, 3, 2)
+    br = bmat.reshape(b, nc, cl, h, n).permute(0, 1, 3, 2, 4)
+    cr = cmat.reshape(b, nc, cl, h, n).permute(0, 1, 3, 2, 4)
+    if cum is None:
+        steps = dtr * a[None, None, :, None]
+        cum = torch.empty_like(steps)
+        run = torch.zeros_like(steps[..., 0])
+        for i in range(cl):
+            run = run + steps[..., i]
+            cum[..., i] = run
+    g = mm_3xtf32(cr, br.transpose(-1, -2), passes)
+    ii = torch.arange(cl)
+    below = ii[:, None] >= ii[None, :]
+    expo = torch.where(below, (cum[..., :, None] - cum[..., None, :]) * LOG2E,
+                       torch.tensor(float("-inf")))
+    scores = g * (torch.exp2(expo) * dtr[..., None, :])
+    y = mm_3xtf32(scores, xr, passes)
+    wdt = torch.exp(cum[..., -1:] - cum) * dtr
+    st = mm_3xtf32((br * wdt[..., None]).transpose(-1, -2), xr, passes)
+    return (y.permute(0, 1, 3, 2, 4).reshape(b, s, h, p), st,
+            torch.exp(cum).permute(0, 1, 3, 2).reshape(b, s, h))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SHAPES)
+def test_tensor_core_arithmetic_matches_reference_kernel(b, s, h, p, n, chunk):
+    jx, tx = mk(s + 3 * h, b, s, h, p, n)
+    want = jax_intra(*jx, chunk=chunk, interpret=True)
+    for g, w in zip(emulate_tensor_core_kernel(*tx, chunk=chunk), want):
+        close(g, w)
+
+
+def test_tensor_core_arithmetic_on_the_models_dt_and_a():
+    """A few heads of the serving shape (P=64, N=16, chunk 128) with dt
+    and A as the model at init feeds them: cum reaches about -1900
+    within a chunk. There cum_i - cum_j cancels, so y moves by up to
+    ~3e-4 between float32 cumsum orders (JAX's associative scan against
+    a sequential sum): the kernel follows the order of the port's plain
+    version on the card, a sequential float32 sum, and chip_smoke.py
+    holds it to that version there. Here the products and the scaling are
+    held to JAX on JAX's own cum."""
+    rng = np.random.default_rng(23)
+    b, s, p, n, chunk = 1, 256, 64, 16, 128
+    heads = np.array([0, 16, 33, 49])
+    a = (-np.linspace(1.0, 16.0, 50)[heads]).astype(np.float32)
+    h = len(heads)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
+    b1, c1 = (rng.standard_normal((b, s, 1, n)).astype(np.float32) for _ in range(2))
+    bm, cm = (np.ascontiguousarray(np.broadcast_to(t, (b, s, h, n))) for t in (b1, c1))
+    arrs = (x, dt, a, bm, cm)
+    want = jax_intra(*(jnp.asarray(t) for t in arrs), chunk=chunk, interpret=True)
+    steps = jnp.asarray(dt.reshape(b, s // chunk, chunk, h) * a)
+    cum = torch.from_numpy(np.array(jnp.cumsum(steps, axis=2))).permute(0, 1, 3, 2)
+    got = emulate_tensor_core_kernel(*(torch.from_numpy(t) for t in arrs),
+                                     chunk=chunk, cum=cum)
+    assert float(np.abs(np.asarray(want[0])).max()) > 20.0
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+def test_cumsum_order_moves_y_on_the_models_dt_and_a():
+    """Why the kernel keeps the plain version's cum order: on the model's
+    inputs cum passes -1000 within a chunk, and the same arithmetic on
+    a sequential float32 cum and on JAX's cum differs by several times
+    what the three TF32 passes cost, near the tolerance itself."""
+    rng = np.random.default_rng(23)
+    b, s, p, n, chunk = 1, 256, 64, 16, 128
+    a = (-np.linspace(1.0, 16.0, 50)[[0, 16, 33, 49]]).astype(np.float32)
+    h = len(a)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
+    b1, c1 = (rng.standard_normal((b, s, 1, n)).astype(np.float32) for _ in range(2))
+    bm, cm = (np.ascontiguousarray(np.broadcast_to(t, (b, s, h, n))) for t in (b1, c1))
+    arrs = (x, dt, a, bm, cm)
+    want = torch.from_numpy(np.array(
+        jax_intra(*(jnp.asarray(t) for t in arrs), chunk=chunk, interpret=True)[0]))
+    steps = jnp.asarray(dt.reshape(b, s // chunk, chunk, h) * a)
+    cum = torch.from_numpy(np.array(jnp.cumsum(steps, axis=2))).permute(0, 1, 3, 2)
+    assert float(cum.min()) < -1000.0
+    tx = [torch.from_numpy(t) for t in arrs]
+    y_seq = emulate_tensor_core_kernel(*tx, chunk=chunk)[0]
+    y_jax = emulate_tensor_core_kernel(*tx, chunk=chunk, cum=cum)[0]
+    order = float((y_seq - y_jax).abs().max())
+    passes = float((y_jax - want).abs().max())
+    assert order > 5 * passes and order > ATOL / 2
+
+
+def test_one_tf32_pass_would_miss_the_tolerance():
+    """Why three passes: hi.hi alone misses 2e-4 at the serving width."""
+    jx, tx = mk(29, 1, 128, 2, 64, 16)
+    want = torch.from_numpy(np.array(jax_intra(*jx, chunk=128, interpret=True)[0]))
+    err = {passes: float((emulate_tensor_core_kernel(*tx, chunk=128, passes=passes)[0]
+                          - want).abs().max()) for passes in (1, 3)}
+    assert err[3] <= ATOL < err[1]
+
+
+@pytest.mark.parametrize("v,hi", [
+    (1.0 + 2.0**-11, 1.0 + 2.0**-10),        # a tie rounds away from zero
+    (-(1.0 + 2.0**-11), -(1.0 + 2.0**-10)),
+    (1.0 + 2.0**-11 - 2.0**-23, 1.0),        # below the tie rounds down
+    (1.0 + 3 * 2.0**-11, 1.0 + 2.0**-9),     # the odd tie also goes away
+    (2.0 - 2.0**-12, 2.0),                   # carries into the exponent
+    (3.0, 3.0),
+])
+def test_tf32_split_rounds_as_cvt_rna(v, hi):
+    got_hi, got_lo = tf32_split(torch.tensor([v], dtype=torch.float32))
+    assert float(got_hi) == hi
+    assert int(got_hi.view(torch.int32)) & TF32_DROPPED == 0
+    assert float(got_lo) == np.float32(v) - np.float32(hi)
+
+
+def test_tf32_split_reconstructs_v():
+    """hi + lo is v to float32's rounding (exactly, since lo = v - hi is
+    exact); what the tensor core reads of them is v to 2^-21 of |v|."""
+    rng = np.random.default_rng(31)
+    v = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4096), rng.standard_normal(1024) * 1e30,
+        rng.standard_normal(1024) * 1e-30]).astype(np.float32))
+    hi, lo = tf32_split(v)
+    assert torch.equal(hi + lo, v)
+    read = tensor_core_reads(hi).double() + tensor_core_reads(lo).double()
+    assert torch.equal(tensor_core_reads(hi), hi)
+    assert bool(((read - v.double()).abs() <= 2.0**-21 * v.double().abs()).all())
+
+
+@pytest.mark.parametrize("chunk,n,p,want", [
+    (128, 16, 64, "tensor_cores"),   # hymba-1.5b's serving shape
+    (64, 16, 64, "tensor_cores"),
+    (40, 12, 24, "tensor_cores"),
+    (128, 32, 64, "tensor_cores"),
+    (16, 4, 4, "tensor_cores"),
+    (256, 16, 64, "cuda_cores"),     # chunk above 128
+    (128, 16, 128, "cuda_cores"),    # P above 64
+    (128, 64, 64, "cuda_cores"),     # N above 32
+    (20, 6, 10, "cuda_cores"),       # P and N not multiples of 4
+    (32, 16, 10, "cuda_cores"),
+    (32, 6, 16, "cuda_cores"),
+])
+def test_route_by_shape(chunk, n, p, want):
+    assert route(chunk, n, p) == want
+
+
+def test_every_tensor_core_shape_fits_a_block():
+    """The wrapper's count of the kernel's shared memory: 112,640 B at the
+    serving shape (two CTAs an SM), at most 145,408 B, below an H100
+    block's 232,448."""
+    assert sm90_smem_bytes(128, 16, 64) == 112_640
+    assert max(sm90_smem_bytes(c, n, p) for c in range(1, 129)
+               for n in range(4, 33, 4) for p in range(4, 65, 4)) == 145_408
+
+
+def _serving_operands():
+    rng = np.random.default_rng(37)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 3, 64)).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (2, 128, 3)).astype(np.float32))
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, (3,)).astype(np.float32))
+    bm, cm = (torch.from_numpy(rng.standard_normal((2, 128, 1, 16)).astype(np.float32))
+              .expand(2, 128, 3, 16) for _ in range(2))
+    return dict(x=x, dt=dt, a=a, bmat=bm, cmat=cm)
+
+
+def test_operands_as_the_model_passes_them_are_accepted():
+    ops = _serving_operands()
+    assert ops["bmat"].stride(2) == 0
+    check_operands("tensor_cores", **ops)
+    check_operands("cuda_cores", **ops)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("misaligned_row", "stride 66 of dim 1 is 264 bytes, not a multiple of 16"),
+    ("misaligned_base", "base pointer .* not 16-byte aligned"),
+    ("last_dim", "the last dim of x must be contiguous"),
+])
+def test_wrapper_refuses_what_the_copies_cannot_take(bad, match):
+    ops = _serving_operands()
+    x = ops["x"]
+    if bad == "misaligned_row":      # rows of 66 floats, 264 bytes apart
+        x = torch.zeros((2, 128, 66))[:, :, None, :64].expand(2, 128, 3, 64)
+    elif bad == "misaligned_base":   # one float into its storage
+        x = torch.zeros(x.numel() + 1)[1:].view(x.shape)
+    else:                            # p not the contiguous dim
+        x = x.transpose(2, 3).contiguous().transpose(2, 3)
+    ops["x"] = x
+    with pytest.raises(ValueError, match=match):
+        check_operands("tensor_cores", **ops)
+    if bad != "last_dim":            # the CUDA-core kernel reads any stride
+        check_operands("cuda_cores", **ops)
+
+
+def test_wrapper_refuses_a_dtype_it_does_not_take():
+    ops = _serving_operands()
+    ops["dt"] = ops["dt"].double()
+    with pytest.raises(TypeError, match="dt has dtype torch.float64"):
+        check_operands("tensor_cores", **ops)
