@@ -37,9 +37,11 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      z-step (table or support build plus sweep) with the alias built in
      the kernel and with tables built first, bitwise equal and both
      timed;
-  5. flash attention and the SSD intra-chunk kernel against their plain
-     versions on the card, in the working dtype, float32 products in
-     full float32 (no TF32): attention at hymba's prefill shape (B=4,
+  5. flash attention and the SSD intra-chunk kernels against their plain
+     versions on the card, in the working dtype, the plain versions'
+     float32 products in full float32 (no TF32; the tensor-core SSD
+     kernel gets float32 accuracy from three TF32 passes): attention at
+     hymba's prefill shape (B=4,
      S=512, 25/5 heads, D=64, window 2048) in bf16 and float32, at
      S=4096 with window 2048, at ragged S=300 with a window larger than
      S, non-causal, group 1 and D in {16, 128} (atol 3e-2 bf16, 2e-5
