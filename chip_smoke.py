@@ -13,7 +13,8 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      and of the two tensor-core kernels, and the CTAs an SM holds of the
      SSD one;
   2. hdp_z against its plain version on the card: every variant of
-     emit_delta x prologue (in-kernel alias) mode at K in {2, 3, 257,
+     emit_delta x table mode (float32 tables, compact bf16/int16 tables,
+     prologue: the alias built in the kernel) at K in {2, 3, 257,
      1000} and W in {8, 33, 64, 256}, value- and topic-ordered tables,
      odd D, L=24 (L=23 at W=33, where the lanes kernel reads positions
      and rows in scalars), ragged masked padding, words with zero mass
@@ -27,8 +28,9 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      n == count_n(z), n.sum() == tokens, |sum(psi) - 1| < 1e-4, the
      flag topic is empty and the kernel's launch count rose by 1, on the
      lanes route;
-  4. one sweep at the main path's shape on four inputs: the trained
-     state in prologue and in table mode, random z, and a dense phi
+  4. one sweep at the main path's shape on five inputs: the trained
+     state in prologue mode, in table mode and on compact tables, random
+     z, and a dense phi
      (every word's W slots live) with random z; on each the kernel
      against the plain version (bitwise), both timed with CUDA events,
      beside the warp kernel (the earlier design) on the same inputs,
@@ -58,6 +60,9 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      head, and with the model's dt and A; at S=128 (one chunk); at chunk
      64; at one odd shape (P=24, N=12, chunk 40) on the tensor cores and
      one (P=10, N=6, chunk 20) that the route leaves on the CUDA cores;
+     on the model's dt and A both routes also against the plain version
+     and a float64 oracle computed on the card (decays from float64
+     segment sums), at 2e-4;
   6. the LM main path: ``repro_torch.launch.serve`` serves hymba-1.5b at
      full width (32 layers, d_model 1600, bf16 weights from a seed): 8
      requests of 512 tokens in batches of 4, 32 greedy tokens each; every
@@ -78,10 +83,24 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      (the line's ``earlier_ms`` is the CUDA-core kernel by events);
      SSD by its device time under ``torch.profiler`` (the kernels line's
      ``ms``), by events, and on dt and A as the model at init feeds them
-     (held to its plain version there too), beside the CUDA-core SSD
+     (both routes held to the plain version and the float64 oracle
+     there), beside the CUDA-core SSD
      kernel, the earlier design, on the same inputs by events
      (``earlier_ms``) and device time; the SSD bound prices the products
-     at three TF32 passes on the tensor cores.
+     at three TF32 passes on the tensor cores;
+  8. the streamed main path, ``StreamingHDP.iteration`` on the corpus of
+     phase 3 (K=1000, W=256, z slabs packed to uint16): (a) a one-block
+     stream is bitwise the monolithic chain over 2 iterations; (b) 11
+     blocks of 8,192 documents (the last padded), 2 iterations with the
+     ram and the disk store, bitwise equal, n the recount of z, z in
+     [0, K); (c) iteration 2 stopped after 5 blocks at a checkpoint,
+     restored and finished, bitwise (b); (d) block-sparse tables (table
+     mode) bitwise the default (prologue mode); (e) every sweep on the
+     lanes route, the sweep counts zeroed just before (b) and read just
+     after; (f) one iteration streamed and monolithic on the corpus
+     tiled 10x by documents (819,990 documents): s/iter, peak device
+     memory (the streamed one must be lower) and the streamed
+     iteration's phase split (``iteration_profiled``).
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +130,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import hdp as H  # noqa: E402
 from repro_torch.core.polya_urn import ppu_sample  # noqa: E402
+from repro_torch.core.streaming import StreamingHDP  # noqa: E402
+from repro_torch.data.corpus import Corpus  # noqa: E402
+from repro_torch.data.stream import ShardedCorpusStore  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -120,7 +142,8 @@ from repro_torch.kernels.hdp_z.hdp_z import hdp_z_cuda  # noqa: E402
 from repro_torch.kernels.hdp_z.ref import (  # noqa: E402
     hdp_z_ref, hdp_z_ref_prologue)
 from repro_torch.kernels.ssd import ssd as SSD  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
+from repro_torch.kernels.ssd.ref import (  # noqa: E402
+    decay_to_end, segsum, ssd_intra_chunk_ref)
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 from repro_torch.models.lm import CausalLM  # noqa: E402
@@ -148,6 +171,12 @@ SSD_ATOL = 2e-4
 # H100 80GB HBM3, 700.00 W), a few float32 ulps of the largest logit;
 # 1e-3 leaves about 7x that and is still 3e-6 of the logits' scale.
 CONSISTENCY_ATOL = 1e-3
+
+# the streamed main path (phase 8): documents a block (11 blocks of the
+# PubMed 0.01 replica, the last one padded), and how many times the
+# corpus is tiled by documents for the memory comparison
+STREAM_BLOCK_DOCS = 8192
+STREAM_TILES = 10
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -205,21 +234,24 @@ def small_problem(rng, k, w, device, d=37, l=24, v=50):
 
 
 def compare_variants(tokens, mask, z0, u, phi, psi, alpha, w, kk, order, want_route):
-    """Kernel against plain version in all four emit_delta x prologue
-    variants on the same inputs, each launch on ``want_route``; returns
-    the largest integer error."""
+    """Kernel against plain version in all six emit_delta x mode variants
+    (float32 tables, compact bf16/int16 tables, prologue) on the same
+    inputs, each launch on ``want_route``; returns the largest integer
+    error."""
     vv = phi.shape[1]
     n0 = H.count_n(z0, tokens, mask, kk, vv)
-    q_a, fpack, ipack = zops.build_word_sparse_tables(phi, psi, alpha, w, order=order)
+    tables = {compact: zops.build_word_sparse_tables(phi, psi, alpha, w, order=order,
+                                                     compact=compact)
+              for compact in (False, True)}
     vals, ids = zops.build_word_sparse_supports(phi, w, order=order)
     apsi = torch.tensor(alpha, dtype=torch.float32, device=psi.device) * psi
     limit = HZ.smem_limit(tokens.device)
     worst = 0
-    for in_kernel in (False, True):
+    for mode in ("table", "compact", "prologue"):
+        in_kernel = mode == "prologue"
         for emit in (False, True):
             r = HZ.route(kk, tokens.shape[1], in_kernel, limit)
-            check(r == want_route, f"K={kk} in_kernel={in_kernel}: route {r}, "
-                  f"expected {want_route}")
+            check(r == want_route, f"K={kk} {mode}: route {r}, expected {want_route}")
             before = hdp_z_cuda.launches
             before_route = hdp_z_cuda.launches_by_route[r]
             if in_kernel:
@@ -228,12 +260,13 @@ def compare_variants(tokens, mask, z0, u, phi, psi, alpha, w, kk, order, want_ro
                 want = hdp_z_ref_prologue(tokens, mask, z0, u, apsi, vals,
                                           ids, kk=kk, emit_delta=emit)
             else:
+                q_a, fpack, ipack = tables[mode == "compact"]
                 got = hdp_z_cuda(tokens, mask, z0, u, kk=kk, q_a=q_a,
                                  fpack=fpack, ipack=ipack, emit_delta=emit)
                 want = hdp_z_ref(tokens, mask, z0, u, q_a, fpack, ipack,
                                  kk=kk, emit_delta=emit)
             torch.cuda.synchronize()
-            tag = f"K={kk} W={w} {order} in_kernel={in_kernel} emit_delta={emit}"
+            tag = f"K={kk} W={w} {order} {mode} emit_delta={emit}"
             check(hdp_z_cuda.launches == before + 1, f"{tag}: no launch")
             check(hdp_z_cuda.launches_by_route[r] == before_route + 1,
                   f"{tag}: not launched on the {r} route")
@@ -305,7 +338,8 @@ def host_time_ms(fn, reps: int) -> float:
     return ms
 
 
-def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit, row_slots, token_slots):
+def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit, row_slots, token_slots,
+                   table_bytes=4):
     """Least time for one sweep: each byte the sweep needs read once and
     each output byte written once over the memory rate, against the
     float32 work every live token needs whichever branch it takes over
@@ -316,12 +350,14 @@ def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit, row_slots, token_slot
     z); tokens and uniforms only at the ``live`` positions; m (D, K); the
     supports' values and ids at the words' live slots (``row_slots`` in
     all) and apsi, or q_a, those values and ids and the alias tables
-    over their full (V, W) (a draw reads any slot); dn (K, V) with emit.
+    over their full (V, W) (a draw reads any slot), at ``table_bytes`` an
+    element (4, or 2 for compact tables); dn (K, V) with emit.
     Operations: per live slot of each live token's word (``token_slots``
     in all) a product and a prefix add for term (b); prologue mode also
     a product and an add for wa and q_a."""
     nbytes = d * l * (1 + 4 + 4) + live * (4 + 12) + d * kk * 4
-    nbytes += (row_slots * 8 + kk * 4) if in_kernel else (vv * 4 + row_slots * 8 + vv * w * 8)
+    nbytes += ((row_slots * 8 + kk * 4) if in_kernel else
+               (vv * 4 + (row_slots + vv * w) * 2 * table_bytes))
     nbytes += kk * vv * 4 if emit else 0
     ops = token_slots * (4 if in_kernel else 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -434,9 +470,57 @@ def ssd_inputs(gen, b, s, h, p, n, shared=True, model=False):
     return x, dt, a, bm, cm
 
 
+def ssd_oracle(x, dt, a, bm, cm, chunk):
+    """The intra-chunk pass in float64 on the card, from the float32
+    inputs, its decays from float64 segment sums of the exact products
+    dt * A: (y, st, dec) as ``ssd_intra_chunk``."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    nc = s // chunk
+    steps = dt.double().reshape(b, nc, chunk, h) * a.double()
+    xdt = (x.double() * dt.double()[..., None]).reshape(b, nc, chunk, h, p)
+    br = bm.double().reshape(b, nc, chunk, h, n)
+    scores = torch.einsum("bcihn,bcjhn->bcijh", cm.double().reshape(b, nc, chunk, h, n),
+                          br) * torch.exp(segsum(steps, 2))
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xdt).reshape(b, s, h, p)
+    st = torch.einsum("bcjhn,bcjhp->bchnp",
+                      br * torch.exp(decay_to_end(steps, 2))[..., None], xdt)
+    return y, st, torch.exp(torch.cumsum(steps, 2)).reshape(b, s, h)
+
+
+def check_ssd_oracle(tag, args, cl, want=None) -> float:
+    """Both SSD routes that take the shape (the tensor-core one only where
+    ``SSD.route`` allows it) against the plain version and the float64
+    oracle at SSD_ATOL, over y, st and dec; returns their largest error
+    against the oracle. These launches compare, they are off any main
+    path."""
+    want = ssd_intra_chunk_ref(*args, chunk=cl) if want is None else want
+    oracle = ssd_oracle(*args, cl)
+    b, s, h, p = args[0].shape
+    routes = (("tensor_cores", "cuda_cores")
+              if SSD.route(cl, args[3].shape[-1], p) == "tensor_cores" else ("cuda_cores",))
+    worst, line = 0.0, []
+    for r in routes:
+        got = SSD._launch(r, *args, cl)
+        torch.cuda.synchronize()
+        for name, g, w, o in zip(("y", "st", "dec"), got, want, oracle):
+            e, eo = float((g - w).abs().max()), float((g.double() - o).abs().max())
+            check(e <= SSD_ATOL, f"{tag} {r}: {name} {e} from the plain version")
+            check(eo <= SSD_ATOL, f"{tag} {r}: {name} {eo} from the float64 oracle")
+            worst = max(worst, eo)
+        line.append(f"{r} y {float((got[0].double() - oracle[0]).abs().max()):.3g}")
+    plain_err = max(float((w.double() - o).abs().max()) for w, o in zip(want, oracle))
+    check(plain_err <= SSD_ATOL, f"{tag}: the plain version {plain_err} from the oracle")
+    print(f"{tag}: max |. - float64 oracle|: {', '.join(line)}, plain {plain_err:.3g} "
+          f"over y, st, dec (|y| up to {float(oracle[0].abs().max()):.1f})", flush=True)
+    return worst
+
+
 def check_ssd(gen, b, s, h, p, n, cl, shared=True, model=False) -> float:
     """Kernel against plain version on one case, the launch on the route
-    ``SSD.route`` gives; returns the largest error over y, st and dec."""
+    ``SSD.route`` gives; with ``model`` also both routes against the plain
+    version and the float64 oracle (``check_ssd_oracle``). Returns the
+    largest error over y, st and dec."""
     args = ssd_inputs(gen, b, s, h, p, n, shared, model)
     route = SSD.route(cl, n, p)
     before = SSD.ssd_intra_chunk.launches
@@ -458,7 +542,190 @@ def check_ssd(gen, b, s, h, p, n, cl, shared=True, model=False) -> float:
         err = max(err, e)
     print(f"[5] {tag} ({route}): max |kernel - plain| {err:.3g} over y, st, dec",
           flush=True)
+    if model:
+        check_ssd_oracle(f"[5] {tag}", args, cl, want)
     return err
+
+
+def check_streams_equal(a, b, tag: str) -> None:
+    """Two streamed states bitwise equal: n, phi, varphi, psi, l, z and
+    the iteration count."""
+    for f in ("n", "phi", "varphi", "psi", "l"):
+        check(torch.equal(getattr(a, f), getattr(b, f)), f"{tag}: {f} differs")
+    check(a.it == b.it, f"{tag}: iterations {a.it} and {b.it}")
+    check(np.array_equal(a.z_blocks.materialize(), b.z_blocks.materialize()),
+          f"{tag}: z differs")
+
+
+def streamed_chain(stream: StreamingHDP, iters: int, seed: int):
+    state = stream.init_state(seed)
+    for _ in range(iters):
+        state = stream.iteration(state)
+    return state
+
+
+def stream_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
+    """Phase 8, the streamed main path (``StreamingHDP.iteration``) on the
+    corpus of phase 3, K=1000, W=256, z packed to uint16: (a) a one-block
+    stream is bitwise the monolithic chain over 2 iterations; (b) 11
+    blocks of 8,192 documents (the last padded), 2 iterations with the ram
+    and with the disk store, bitwise equal, n the recount of z, z in [0,
+    K); (c) iteration 2 stopped after 5 blocks at a checkpoint, restored
+    and finished, bitwise (b); (d) block-sparse tables (table mode)
+    bitwise the default (prologue mode); (e) every sweep on the lanes
+    route; (f) one iteration streamed and monolithic on the corpus tiled
+    10x by documents: s/iter, peak device memory, and the streamed
+    iteration's phase split. Returns the numbers for the kernels line."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {}
+    before = dict(hdp_z_cuda.launches_by_route)
+    # (a) one block against the monolithic chain
+    tokens = torch.from_numpy(corpus.tokens).to(dev)
+    mask = torch.from_numpy(corpus.mask).to(dev)
+    one = StreamingHDP(cfg, ShardedCorpusStore.from_corpus(corpus, corpus.num_docs),
+                       device=dev)
+    check(one.store.num_blocks == 1 and one.z_dtype == np.uint16,
+          f"one-block stream: {one.store.num_blocks} blocks, z as {one.z_dtype}")
+    mono = H.init_state(H.make_generator(seed, dev), tokens, mask, cfg)
+    st = one.init_state(seed)
+    for _ in range(2):
+        mono = H.gibbs_iteration(mono, tokens, mask, cfg)
+        st = one.iteration(st)
+    check(torch.equal(mono.z.cpu(), torch.from_numpy(st.z_blocks[0])),
+          "one-block stream: z differs from the monolithic chain")
+    for f in ("n", "phi", "varphi", "psi", "l"):
+        check(torch.equal(getattr(mono, f), getattr(st, f)),
+              f"one-block stream: {f} differs from the monolithic chain")
+    check(hdp_z_cuda.launches_by_route == {"lanes": before["lanes"] + 4,
+                                           "warp": before["warp"]},
+          f"one-block stream: launches by route {hdp_z_cuda.launches_by_route}, "
+          f"from {before}: expected 4 more on lanes")
+    print("[8] (a) a one-block stream is bitwise the monolithic chain over 2 "
+          "iterations (z, n, phi, varphi, psi, l)", flush=True)
+    del mono, st, one
+
+    # (b) the main path: 11 blocks, ram and disk
+    store = ShardedCorpusStore.from_corpus(corpus, STREAM_BLOCK_DOCS)
+    check(store.num_blocks == 11, f"{store.num_blocks} blocks, expected 11")
+    ram = StreamingHDP(cfg, store, device=dev)
+    st_ram = ram.init_state(seed)
+    torch.cuda.synchronize()
+    hdp_z_cuda.launches = 0
+    hdp_z_cuda.launches_by_route.update(dict.fromkeys(HZ.ROUTES, 0))
+    t0 = time.perf_counter()
+    for _ in range(2):
+        st_ram = ram.iteration(st_ram)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out["launches"] = hdp_z_cuda.launches
+    out["launches_by_route"] = dict(hdp_z_cuda.launches_by_route)
+    want = 2 * store.num_blocks
+    check(out["launches_by_route"] == {"lanes": want, "warp": 0},
+          f"streamed main path: launches by route {out['launches_by_route']}, "
+          f"expected {want} on lanes")
+    st_disk = streamed_chain(StreamingHDP(cfg, store, device=dev, z_store="disk"), 2, seed)
+    check_streams_equal(st_ram, st_disk, "ram against disk")
+    z_all = st_ram.z_blocks.materialize()
+    check(bool(((z_all >= 0) & (z_all < cfg.K)).all()), "a z outside [0, K)")
+    check(not z_all.reshape(-1, store.max_len)[store.num_docs:].any(),
+          "a padded row's z is not 0")
+    z_dev = torch.from_numpy(z_all.reshape(-1, store.max_len)[:store.num_docs]).to(dev)
+    check(torch.equal(st_ram.n, H.count_n(z_dev, tokens, mask, cfg.K, cfg.V)),
+          "streamed n != count_n(z)")
+    check(int(st_ram.n.sum()) == int(mask.sum()), "streamed n.sum() != tokens")
+    del z_dev, tokens, mask
+    print(f"[8] (b) {store.num_blocks} blocks x {store.block_docs} docs, z as "
+          f"{st_ram.z_blocks.dtype}: 2 iterations in {secs:.3f} s "
+          f"({secs / 2:.4f} s/iter, iteration 1 included), ram == disk bitwise, n == "
+          f"count_n(z), z in [0, K); sweeps {out['launches']} "
+          f"(by route {out['launches_by_route']})", flush=True)
+
+    # (c) stopped mid-iteration at a checkpoint, restored, finished
+    with tempfile.TemporaryDirectory() as d:
+        st_c = ram.iteration(ram.init_state(seed))
+        check(ram.iteration(st_c, ckpt_dir=d, stop_after_blocks=5) is None,
+              "the stopped iteration returned a state")
+        st_c, kw = ram.restore(d)
+        check(kw.get("start_block") == 5 and st_c.it == 1,
+              f"restored at iteration {st_c.it}, cursor {kw.get('start_block')}")
+        st_c = ram.iteration(st_c, **kw)
+    check_streams_equal(st_ram, st_c, "stopped and resumed")
+    print("[8] (c) iteration 2 stopped after 5 blocks, restored from its checkpoint "
+          "and finished: bitwise (b)", flush=True)
+
+    # (d) block-sparse tables (table mode) against the default (prologue mode)
+    on = StreamingHDP(cfg._replace(alias_in_kernel="off"), store, device=dev,
+                      block_sparse_tables="on")
+    check(on.block_sparse_tables and not on.in_kernel and ram.in_kernel
+          and not ram.block_sparse_tables, "block-sparse tables: unexpected modes")
+    check_streams_equal(st_ram, streamed_chain(on, 2, seed), "block-sparse on")
+    print(f"[8] (d) block_sparse_tables on (table mode, {len(store.vocab_ids())} of "
+          f"{cfg.V} words) == off (prologue mode), bitwise", flush=True)
+    del st_ram, st_disk, st_c, ram, on
+    torch.cuda.empty_cache()
+
+    # (e) every sweep of the phase on the lanes route ((a) checked its own)
+    warp = hdp_z_cuda.launches_by_route["warp"]
+    check(warp == 0, f"phase 8: {warp} sweeps on the warp route since (b)")
+    print(f"[8] (e) every sweep on the lanes route (by route since (b): "
+          f"{dict(hdp_z_cuda.launches_by_route)})", flush=True)
+
+    # (f) the corpus tiled by documents: streamed against monolithic
+    tiled = Corpus(np.tile(corpus.tokens, (STREAM_TILES, 1)),
+                   np.tile(corpus.mask, (STREAM_TILES, 1)), corpus.V)
+    big = StreamingHDP(cfg, ShardedCorpusStore.from_corpus(tiled, STREAM_BLOCK_DOCS),
+                       device=dev)
+    st = big.init_state(seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = big.iteration(st)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stream_peak = torch.cuda.max_memory_allocated()
+    st, timers = big.iteration_profiled(st)
+    check(int(st.n.sum()) == tiled.num_tokens, "tiled stream: n.sum() != tokens")
+    stream_out = dict(sec_per_iter=stream_s, peak_bytes=stream_peak, resident_bytes=base,
+                      profiled_sec=timers.total, phase_sec=timers.totals,
+                      phase_fractions=timers.fractions(), blocks=big.store.num_blocks)
+    del st, big
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(tiled.tokens).to(dev)
+    mask = torch.from_numpy(tiled.mask).to(dev)
+    mono = H.init_state(H.make_generator(seed, dev), tokens, mask, cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mono = H.gibbs_iteration(mono, tokens, mask, cfg)
+    torch.cuda.synchronize()
+    mono_out = dict(sec_per_iter=time.perf_counter() - t0,
+                    peak_bytes=torch.cuda.max_memory_allocated(), resident_bytes=base)
+    check(int(mono.n.sum()) == tiled.num_tokens, "tiled monolithic: n.sum() != tokens")
+    del mono, tokens, mask
+    torch.cuda.empty_cache()
+    check(stream_out["peak_bytes"] < mono_out["peak_bytes"],
+          f"streamed peak {stream_out['peak_bytes']} B not below the monolithic "
+          f"{mono_out['peak_bytes']} B")
+    gib = 2.0**30
+    print(f"[8] (f) corpus tiled {STREAM_TILES}x by documents ({tiled.num_docs} docs, "
+          f"{tiled.num_tokens} tokens): streamed ({stream_out['blocks']} blocks) "
+          f"{stream_out['sec_per_iter']:.4f} s/iter, peak "
+          f"{stream_out['peak_bytes'] / gib:.3f} GiB (resident before the iteration "
+          f"{stream_out['resident_bytes'] / gib:.3f}); monolithic "
+          f"{mono_out['sec_per_iter']:.4f} s/iter, peak {mono_out['peak_bytes'] / gib:.3f} "
+          f"GiB (resident {mono_out['resident_bytes'] / gib:.3f})", flush=True)
+    print(f"[8] (f) streamed iteration, serialized, {stream_out['profiled_sec']:.4f} s "
+          f"by phase: " + ", ".join(f"{k} {v:.4f} s ({stream_out['phase_fractions'][k]:.1%})"
+                                    for k, v in stream_out["phase_sec"].items()),
+          flush=True)
+    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    out["tiled"] = {"streamed": stream_out, "monolithic": mono_out,
+                    "docs": tiled.num_docs, "tokens": tiled.num_tokens}
+    return out
 
 
 def main() -> int:
@@ -522,10 +789,10 @@ def main() -> int:
     phi, psi, tokens, mask, z0, u = small_problem(rng, WARP_ROUTE_K, WARP_ROUTE_W, dev)
     worst = max(worst, compare_variants(tokens, mask, z0, u, phi, psi, 0.3, WARP_ROUTE_W,
                                         WARP_ROUTE_K, "value", "warp"))
-    print(f"[2] kernel == plain, bitwise, in 4 variants at {len(KS) * len(WS)} "
-          f"(K, W) shapes x 2 table orders on the lanes route, and at K={WARP_ROUTE_K} "
-          f"W={WARP_ROUTE_W} on the warp route ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+    print(f"[2] kernel == plain, bitwise, in 6 variants (float32, compact and "
+          f"prologue, +- emit_delta) at {len(KS) * len(WS)} (K, W) shapes x 2 table "
+          f"orders on the lanes route, and at K={WARP_ROUTE_K} W={WARP_ROUTE_W} on "
+          f"the warp route ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- 3. main path ----------------------------------------------------
     args = T.build_parser().parse_args([
@@ -588,15 +855,19 @@ def main() -> int:
     apsi = torch.tensor(cfg.alpha, dtype=torch.float32, device=dev) * psi
     vals, ids = zops.build_word_sparse_supports(phi, cfg.bucket)
     q_a, fpack, ipack = zops.build_word_sparse_tables(phi, psi, cfg.alpha, cfg.bucket)
+    q_c, fpack_c, ipack_c = zops.build_word_sparse_tables(phi, psi, cfg.alpha,
+                                                          cfg.bucket, compact=True)
     vals_d, ids_d = zops.build_word_sparse_supports(phi_dense, cfg.bucket)
     w = vals.shape[1]
     tables = dict(q_a=q_a, fpack=fpack, ipack=ipack)
+    compact = dict(q_a=q_c, fpack=fpack_c, ipack=ipack_c)
     supports = dict(apsi=apsi, vals=vals, ids=ids)
     dense = dict(apsi=apsi, vals=vals_d, ids=ids_d)
     check(bool((vals_d != 0).all()), "dense phi: a support slot is zero")
     timing = {}
     for label, in_kernel, z, args_k in (("prologue", True, state.z, supports),
                                         ("table", False, state.z, tables),
+                                        ("table_compact", False, state.z, compact),
                                         ("prologue_random_z", True, z_rand, supports),
                                         ("dense_phi", True, z_rand, dense)):
         def kern():
@@ -628,26 +899,28 @@ def main() -> int:
               f"main shape {label}: n + dn != count_n(z_new)")
         # the live slots of each word, and of each live token's word
         live_w = (HZ.live_slots(args_k["vals"], apsi, args_k["ids"]) if in_kernel
-                  else HZ.live_slots(fpack[:, 0])).to(torch.int64)
+                  else HZ.live_slots(args_k["fpack"][:, 0].float())).to(torch.int64)
         live_t = live_w[tokens.to(torch.int64)][mask]
-        # the first walk reads 16-byte pieces of values and of ids
-        row_bytes = int(((live_t + 3) // 4).sum()) * 4 * 8
+        # the first walk reads 4-slot pieces of values and of ids
+        elem = 2 if label == "table_compact" else 4
+        row_bytes = int(((live_t + 3) // 4).sum()) * 4 * 2 * elem
         ms = cuda_time_ms(kern, 5)
         earlier_ms = cuda_time_ms(earlier, 3)
         bound, by = sweep_bound_ms(d, l, cfg.K, cfg.V, w, live, in_kernel, True,
-                                   int(live_w.sum()), int(live_t.sum()))
+                                   int(live_w.sum()), int(live_t.sum()), elem)
         changed = int((got[0] != z)[mask].sum())
         timing[label] = dict(
             ms=ms, earlier_ms=earlier_ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=by, changed_tokens=changed,
             live_slots_mean=float(live_t.float().mean()), live_slots_max=int(live_t.max()),
-            row_bytes_first_walk=row_bytes, row_bytes_warp=live * w * 8)
+            row_bytes_first_walk=row_bytes, row_bytes_warp=live * w * 2 * elem)
         print(f"[4] sweep at main shape, {label}, emit_delta: kernel {ms:.3f} ms, "
               f"earlier (warp route) {earlier_ms:.3f} ms, plain {plain_ms:.1f} ms, "
               f"bound {bound:.4f} ms ({by}); live slots a token mean "
               f"{timing[label]['live_slots_mean']:.2f}, max "
               f"{timing[label]['live_slots_max']}; first walk reads {row_bytes} B of "
-              f"rows (warp route {live * w * 8} B); changed tokens {changed} of {live}",
+              f"rows (warp route {live * w * 2 * elem} B); changed tokens {changed} "
+              f"of {live}",
               flush=True)
 
     # The whole z-step of one iteration in either mode: supports and
@@ -836,6 +1109,8 @@ def main() -> int:
             e_core = float((c - w).abs().max())
             check(e_core <= SSD_ATOL, f"ssd_chunk.cu at {label}: {name} max error {e_core}")
             ssd_err = max(ssd_err, e)
+    ssd_oracle_err = check_ssd_oracle("[7] ssd, the model's dt and A, serving shape",
+                                      margs, cl)
     ssd_fn = lambda: SSD.ssd_intra_chunk(*sargs, chunk=cl)  # noqa: E731
     ssd_core_fn = lambda: SSD._launch("cuda_cores", *sargs, cl)  # noqa: E731
     # ms is the kernel's device time under the profiler: its host cost a
@@ -868,12 +1143,21 @@ def main() -> int:
           f"CUDA-core kernel {ssd_t['earlier_ms']:.4f} ms, plain "
           f"{ssd_t['plain_ms']:.4f} ms", flush=True)
 
+    # ---- 8. the streamed main path ----------------------------------------
+    corpus = Corpus(seen["tokens"].cpu().numpy(), seen["mask"].cpu().numpy(), cfg.V)
+    del seen, state, phi_dense, vals_d, ids_d, z_rand, u
+    torch.cuda.empty_cache()
+    streamed = stream_phase(corpus, cfg, dev, seed=0)
+
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
         "source": "src/repro_torch/kernels/hdp_z/csrc/hdp_z_lanes.cu",
         "replaces": "src/repro/kernels/hdp_z/hdp_z.py:71",
         "launches": main_launches, "launches_by_route": main_by_route,
+        # the streamed main path's sweeps (phase 8 (b))
+        "launches_streamed": streamed["launches"],
+        "launches_streamed_by_route": streamed["launches_by_route"],
         "max_abs_err": worst,
         "ms": main["ms"], "earlier_ms": main["earlier_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -898,7 +1182,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk_sm90.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:31",
         "launches": ssd_launches, "launches_by_route": ssd_by_route,
-        "max_abs_err": ssd_err, **ssd_t,
+        "max_abs_err": ssd_err, "oracle_max_abs_err": ssd_oracle_err, **ssd_t,
         # the earlier design, the route of shapes the tensor-core one refuses
         "cuda_core_source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
         "shape": f"B={SERVE_B} S={SERVE_S} H={h_ssd} P={p_ssd} N={n_ssd} chunk={cl} f32",
@@ -906,7 +1190,8 @@ def main() -> int:
         "prefill_tok_s", "decode_tok_s", "prefill_tok_s_per_batch",
         "decode_tok_s_per_batch", "warmup_batches")},
         "spread": spread},
-        "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale}}),
+        "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale},
+        "stream_tiled": streamed["tiled"]}),
         flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Carry a sampler state across between the reference and the port.
 
-The reference's ``HDPState`` fields travel as numpy arrays (a JAX array
-converts with ``np.asarray``); its PRNG key does not carry over, since
-the two frameworks draw different bits, so the port's state gets a fresh
-``torch.Generator`` from ``seed``.
+The reference's ``HDPState`` and ``StreamingState`` fields travel as
+numpy arrays (a JAX array converts with ``np.asarray``); its PRNG key
+does not carry over, since the two frameworks draw different bits, so
+the port's state gets a fresh ``torch.Generator`` from ``seed``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hdp import HDPState, make_generator
+from repro_torch.core.streaming import StreamingHDP, StreamingState
 
 _DTYPES = {"z": torch.int32, "n": torch.int32, "phi": torch.float32,
            "varphi": torch.int32, "psi": torch.float32, "l": torch.int32}
@@ -42,3 +43,29 @@ def state_to_numpy(state: HDPState) -> dict[str, Any]:
     out = {k: getattr(state, k).detach().cpu().numpy() for k in _DTYPES}
     out["it"] = int(state.it)
     return out
+
+
+def streaming_state_from_numpy(
+    arrays: Mapping[str, Any] | Any, z_blocks, stream: StreamingHDP, *,
+    seed: int,
+) -> StreamingState:
+    """The port's ``StreamingState`` for ``stream`` from a reference
+    streaming state's ``n, phi, varphi, psi, l, it`` (a mapping or
+    attributes) and its z slabs ``z_blocks`` ((B, DB, L), an array or
+    anything ``np.asarray`` takes, such as a reference ``ZSlabStore``),
+    written into a new slab store of ``stream``'s kind. Arrays are
+    copied."""
+    get = (arrays.__getitem__ if isinstance(arrays, Mapping)
+           else lambda k: getattr(arrays, k))
+    dev = stream.device
+    fields = {k: torch.tensor(np.array(get(k)), dtype=dt, device=dev)
+              for k, dt in _DTYPES.items() if k != "z"}
+    z = np.asarray(z_blocks)
+    slabs = stream._make_slab_store()
+    if z.shape != (slabs.num_blocks,) + slabs.block_shape:
+        raise ValueError(f"z slabs of shape {z.shape}, the store holds "
+                         f"{(slabs.num_blocks,) + slabs.block_shape}")
+    for b in range(slabs.num_blocks):
+        slabs.write(b, z[b])
+    return StreamingState(**fields, gen=make_generator(seed, dev),
+                          it=int(np.asarray(get("it"))), z_blocks=slabs)

@@ -217,18 +217,22 @@ def _z_step(cfg: HDPConfig, tokens, mask, z, phi, psi, uniforms):
     raise ValueError(f"unknown z_impl {cfg.z_impl!r}")
 
 
+def phi_step(gen: torch.Generator, n, varphi, cfg: HDPConfig):
+    """Step 1, the Phi-step (parallel over topics): ``(phi, varphi)``
+    drawn from n; with ``exact_phi`` a Dirichlet phi and the incoming
+    varphi."""
+    if cfg.exact_phi:
+        return dirichlet_sample(gen, n, cfg.beta), varphi
+    if cfg.ppu_nnz_budget is not None:
+        return ppu_sample_budgeted(gen, n, cfg.beta, cfg.ppu_nnz_budget)
+    return ppu_sample(gen, n, cfg.beta)
+
+
 def gibbs_iteration(state: HDPState, tokens, mask, cfg: HDPConfig) -> HDPState:
     gen = state.gen
 
     # 1. Phi-step (parallel over topics)
-    if cfg.exact_phi:
-        phi = dirichlet_sample(gen, state.n, cfg.beta)
-        varphi = state.varphi
-    elif cfg.ppu_nnz_budget is not None:
-        phi, varphi = ppu_sample_budgeted(
-            gen, state.n, cfg.beta, cfg.ppu_nnz_budget)
-    else:
-        phi, varphi = ppu_sample(gen, state.n, cfg.beta)
+    phi, varphi = phi_step(gen, state.n, state.varphi, cfg)
 
     # 2. z-step (parallel over documents); n advances by the exact delta.
     uniforms = torch.rand(tokens.shape + (3,), generator=gen,

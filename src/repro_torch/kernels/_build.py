@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 # without multiply-add contraction, so that they match their plain
 # version bit for bit (never --use_fast_math); the two CUDA-core LM
 # kernels keep the flags they were measured with. The tensor-core SSD
-# kernel contracts (its sequential cum uses _rn intrinsics, which never
+# kernel contracts (its segment sums use _rn intrinsics, which never
 # fuse), and so do other sources (the tensor-core flash kernel): they
 # are held to their plain versions within stated tolerances.
 SOURCE_FLAGS = {

@@ -22,6 +22,9 @@
 //   prologue mode apsi (K,) = alpha * psi, vals (V, W) f32, ids (V, W)
 //                 i32; wa = vals * apsi[ids], q_a = sum(wa) and the
 //                 alias entry of the drawn slot are built per token.
+// Table mode also takes compact tables, fpack in bf16 and ipack in int16
+// (K <= 32768), each element widened as it is read (bf16 to float32 by
+// a 16-bit shift, int16 to int32 by sign extension; both exact).
 //
 // What bounds it on the card. Within a document every token depends on
 // the one before (m changes), so a sweep is a chain of L dependent steps
@@ -56,6 +59,26 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+// The element types of a table row: float32 values and int32 ids, or
+// (COMPACT) bf16 values and int16 ids; widen() reads either as float32
+// and int32, exactly.
+template <bool COMPACT>
+struct Tab {
+  using F = float;
+  using I = int32_t;
+};
+template <>
+struct Tab<true> {
+  using F = uint16_t;  // bf16 bits
+  using I = int16_t;
+};
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+__device__ __forceinline__ int widen(int32_t x) { return x; }
+__device__ __forceinline__ int widen(int16_t x) { return x; }
+
 // Count of slots j < W with pred(j), identical in every lane.
 template <class Pred>
 __device__ __forceinline__ int warp_count(int W, int lane, Pred pred) {
@@ -78,7 +101,7 @@ __device__ __forceinline__ int warp_first(int W, int lane, Pred pred) {
   return -1;
 }
 
-template <bool IN_KERNEL, bool EMIT>
+template <bool IN_KERNEL, bool EMIT, bool COMPACT>
 __global__ void hdp_z_kernel(
     const int32_t* __restrict__ tokens,  // (D, L)
     const uint8_t* __restrict__ mask,    // (D, L) bool
@@ -86,8 +109,8 @@ __global__ void hdp_z_kernel(
     const float* __restrict__ uni,       // (D, L, 3)
     const float* __restrict__ q_a,       // table mode: (V,)
     const float* __restrict__ apsi,      // prologue mode: (K,)
-    const float* __restrict__ fvals,     // (V, 2, W) or (V, W)
-    const int32_t* __restrict__ ivals,   // (V, 2, W) or (V, W)
+    const typename Tab<COMPACT>::F* __restrict__ fvals,  // (V, 2, W) or (V, W)
+    const typename Tab<COMPACT>::I* __restrict__ ivals,  // (V, 2, W) or (V, W)
     int32_t* __restrict__ z_out,         // (D, L)
     int32_t* __restrict__ m_out,         // (D, K)
     int32_t* __restrict__ dn,            // (K, V), zeroed by the caller
@@ -123,8 +146,8 @@ __global__ void hdp_z_kernel(
       continue;
     }
     const int v = tokens[row + i];
-    const float* vrow = fvals + (int64_t)v * fstride;
-    const int32_t* idrow = ivals + (int64_t)v * fstride;
+    const auto* vrow = fvals + (int64_t)v * fstride;
+    const auto* idrow = ivals + (int64_t)v * fstride;
     const float u1 = uni[(row + i) * 3 + 0];
     const float u2 = uni[(row + i) * 3 + 1];
     const float u3 = uni[(row + i) * 3 + 2];
@@ -132,8 +155,8 @@ __global__ void hdp_z_kernel(
     if (lane == 0) m[z_old] -= 1;  // m^{-i}, before the gather
     __syncwarp();
     for (int j = lane; j < W; j += 32) {
-      const int id = idrow[j];
-      const float val = vrow[j];
+      const int id = widen(idrow[j]);
+      const float val = widen(vrow[j]);
       c[j] = __fmul_rn(val, (float)m[id]);
       if (IN_KERNEL) q[j] = __fmul_rn(val, apsi[id]);
     }
@@ -180,7 +203,7 @@ __global__ void hdp_z_kernel(
       if (doc_branch) {
         int slot_b = warp_count(W, lane, [&](int j) { return c[j] < t; });
         slot_b = min(slot_b, W - 1);
-        k_new = idrow[slot_b];
+        k_new = widen(idrow[slot_b]);
       } else {
         const int s = min((int)__fmul_rn(u2, (float)W), W - 1);
         float prob;
@@ -250,10 +273,10 @@ __global__ void hdp_z_kernel(
           }
           prob = fminf(fmaxf(prob, 0.f), 1.f);
         } else {
-          prob = vrow[W + s];
-          alias = idrow[W + s];
+          prob = widen(vrow[W + s]);
+          alias = widen(idrow[W + s]);
         }
-        k_new = idrow[u3 < prob ? s : alias];
+        k_new = widen(idrow[u3 < prob ? s : alias]);
       }
     }
 
@@ -271,15 +294,17 @@ __global__ void hdp_z_kernel(
   for (int k = lane; k < K; k += 32) m_out[(int64_t)doc * K + k] = m[k];
 }
 
-template <bool IN_KERNEL, bool EMIT>
+template <bool IN_KERNEL, bool EMIT, bool COMPACT = false>
 int launch(const void* tokens, const void* mask, const void* z_in,
            const void* uni, const void* q_a, const void* apsi,
            const void* fvals, const void* ivals, void* z_out, void* m_out,
            void* dn, int D, int L, int K, int V, int W, int warps,
            cudaStream_t stream) {
+  using F = typename Tab<COMPACT>::F;
+  using I = typename Tab<COMPACT>::I;
   const size_t per_warp = (size_t)(K + (IN_KERNEL ? 5 : 1) * W) * 4;
   const size_t smem = per_warp * warps;
-  auto fn = hdp_z_kernel<IN_KERNEL, EMIT>;
+  auto fn = hdp_z_kernel<IN_KERNEL, EMIT, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -288,7 +313,7 @@ int launch(const void* tokens, const void* mask, const void* z_in,
       static_cast<const int32_t*>(tokens), static_cast<const uint8_t*>(mask),
       static_cast<const int32_t*>(z_in), static_cast<const float*>(uni),
       static_cast<const float*>(q_a), static_cast<const float*>(apsi),
-      static_cast<const float*>(fvals), static_cast<const int32_t*>(ivals),
+      static_cast<const F*>(fvals), static_cast<const I*>(ivals),
       static_cast<int32_t*>(z_out), static_cast<int32_t*>(m_out),
       static_cast<int32_t*>(dn), D, L, K, V, W);
   return (int)cudaGetLastError();
@@ -305,16 +330,24 @@ int hdp_z_smem_limit(int device, int* out) {
 }
 
 // Launch one sweep on `stream`. Prologue mode when apsi is not null
-// (q_a unused), table mode otherwise; dn null means no delta. Returns
-// the cudaError_t of the launch (0 on success).
+// (q_a unused), table mode otherwise; dn null means no delta; compact
+// != 0 (table mode only) takes fvals as bf16 and ivals as int16.
+// Returns the cudaError_t of the launch (0 on success).
 int hdp_z_launch(const void* tokens, const void* mask, const void* z_in,
                  const void* uni, const void* q_a, const void* apsi,
                  const void* fvals, const void* ivals, void* z_out,
                  void* m_out, void* dn, int D, int L, int K, int V, int W,
-                 int warps, void* stream) {
+                 int warps, int compact, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool in_kernel = apsi != nullptr;
   const bool emit = dn != nullptr;
+  if (compact && (in_kernel || K > 32768)) return (int)cudaErrorInvalidValue;
+  if (compact && emit)
+    return launch<false, true, true>(tokens, mask, z_in, uni, q_a, apsi, fvals,
+                                     ivals, z_out, m_out, dn, D, L, K, V, W, warps, s);
+  if (compact)
+    return launch<false, false, true>(tokens, mask, z_in, uni, q_a, apsi, fvals,
+                                      ivals, z_out, m_out, dn, D, L, K, V, W, warps, s);
   if (in_kernel && emit)
     return launch<true, true>(tokens, mask, z_in, uni, q_a, apsi, fvals,
                               ivals, z_out, m_out, dn, D, L, K, V, W, warps, s);

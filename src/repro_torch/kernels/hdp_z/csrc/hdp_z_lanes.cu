@@ -8,7 +8,11 @@
 // collapsed-Gibbs pass over its tokens; z_new (D, L), the final m
 // (D, K) and, with emit_delta, dn (K, V). Table mode (q_a, fpack,
 // ipack) and prologue mode (apsi, vals, ids; q_a and the drawn slot's
-// alias entry derived per token) as in hdp_z.cu.
+// alias entry derived per token) as in hdp_z.cu. Table mode also takes
+// compact tables, as the TPU kernel does: fpack in bf16 and ipack in
+// int16 (K <= 32768), each element widened as it is read (bf16 to
+// float32 by a 16-bit shift, int16 to int32 by sign extension; both
+// exact), so the sweep is bitwise the one on the widened tables.
 //
 // What bounds it on this card. Every float sum over a word's slots
 // follows one canonical order, left to right (core/alias.py); the plain
@@ -82,6 +86,27 @@ __host__ __device__ constexpr size_t apsi_bytes(int K) {
 // registers (every index below is a compile-time constant once the
 // loops that read it are unrolled).
 constexpr int kGroup = 20;
+
+// The element types of a table row: float32 values and int32 ids, or
+// (COMPACT) bf16 values and int16 ids; widen() reads either as float32
+// and int32, exactly.
+template <bool COMPACT>
+struct Tab {
+  using F = float;
+  using I = int32_t;
+};
+template <>
+struct Tab<true> {
+  using F = uint16_t;  // bf16 bits
+  using I = int16_t;
+};
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+__device__ __forceinline__ int widen(int32_t x) { return x; }
+__device__ __forceinline__ int widen(int16_t x) { return x; }
+
 struct Group {
   float f[kGroup];
   int id[kGroup];
@@ -89,15 +114,16 @@ struct Group {
 static_assert(kGroup * kLanes <= kStage, "a lane's prefixes fit the tile");
 
 // Slots [j0, j0 + 20) of a row that lie below `end`, zero elsewhere.
-// VEC: 16-byte loads (the row is 16-byte aligned and W % 4 == 0, so a
-// piece that starts below end <= W lies in the row); scalars otherwise.
-template <bool VEC>
-__device__ __forceinline__ void load_group(const float* __restrict__ fp,
-                                           const int32_t* __restrict__ ip,
+// VEC: 4 slots a load, 16 bytes of float32 or int32, 8 of bf16 or int16
+// (the row is 16-byte aligned and W % 4 == 0, so a piece that starts
+// below end <= W lies in the row); scalars otherwise.
+template <bool VEC, class F, class I>
+__device__ __forceinline__ void load_group(const F* __restrict__ fp,
+                                           const I* __restrict__ ip,
                                            int j0, int end, Group& g) {
 #pragma unroll
   for (int c = 0; c < kGroup; c += 4) {
-    if (VEC) {
+    if constexpr (VEC && sizeof(F) == 4) {
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
       int4 b = make_int4(0, 0, 0, 0);
       if (j0 + c < end) {
@@ -106,12 +132,25 @@ __device__ __forceinline__ void load_group(const float* __restrict__ fp,
       }
       g.f[c] = a.x; g.f[c + 1] = a.y; g.f[c + 2] = a.z; g.f[c + 3] = a.w;
       g.id[c] = b.x; g.id[c + 1] = b.y; g.id[c + 2] = b.z; g.id[c + 3] = b.w;
+    } else if constexpr (VEC) {
+      uint2 a = make_uint2(0u, 0u), b = make_uint2(0u, 0u);
+      if (j0 + c < end) {
+        a = __ldg(reinterpret_cast<const uint2*>(fp + j0 + c));
+        b = __ldg(reinterpret_cast<const uint2*>(ip + j0 + c));
+      }
+      const uint32_t fa[2] = {a.x, a.y}, ib[2] = {b.x, b.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // slot c + e in bits 16 (e % 2)
+        const uint32_t sh = 16u * (e & 1);
+        g.f[c + e] = widen((uint16_t)(fa[e >> 1] >> sh));
+        g.id[c + e] = widen((int16_t)(ib[e >> 1] >> sh));
+      }
     } else {
 #pragma unroll
       for (int e = c; e < c + 4; ++e) {
         const bool in = j0 + e < end;
-        g.f[e] = in ? __ldg(fp + j0 + e) : 0.f;
-        g.id[e] = in ? __ldg(ip + j0 + e) : 0;
+        g.f[e] = in ? widen(__ldg(fp + j0 + e)) : 0.f;
+        g.id[e] = in ? widen(__ldg(ip + j0 + e)) : 0;
       }
     }
   }
@@ -121,9 +160,9 @@ __device__ __forceinline__ void load_group(const float* __restrict__ fp,
 // order until fn returns true, and returns that slot, or n. The slots
 // are read a group at a time, the next group's loads in flight while
 // this one's slots are walked.
-template <bool VEC, class Fn>
-__device__ __forceinline__ int walk_rows(const float* __restrict__ fp,
-                                         const int32_t* __restrict__ ip,
+template <bool VEC, class F, class I, class Fn>
+__device__ __forceinline__ int walk_rows(const F* __restrict__ fp,
+                                         const I* __restrict__ ip,
                                          int j0, int n, Fn fn) {
   if (j0 >= n) return n;
   Group cur;
@@ -326,9 +365,9 @@ __device__ __forceinline__ void add_slot(Sums& a, int j, float val, int id,
 }
 
 // The first walk past slot 20 (out of line, as it is rare).
-template <bool IN_KERNEL, bool VEC>
-__device__ __noinline__ Sums first_walk_rest(const float* __restrict__ vrow,
-                                             const int32_t* __restrict__ idrow,
+template <bool IN_KERNEL, bool VEC, class F, class I>
+__device__ __noinline__ Sums first_walk_rest(const F* __restrict__ vrow,
+                                             const I* __restrict__ idrow,
                                              const uint16_t* mcol,
                                              const float* apsi_s, int n,
                                              Sums a) {
@@ -349,9 +388,9 @@ struct Count {
 };
 
 // The second walk past slot 20 (out of line, as it is rare).
-template <bool VEC>
+template <bool VEC, class F, class I>
 __device__ __noinline__ Count second_walk_rest(
-    const float* __restrict__ vrow, const int32_t* __restrict__ idrow,
+    const F* __restrict__ vrow, const I* __restrict__ idrow,
     const uint16_t* mcol, int n, float t, bool mono, Count r) {
   walk_rows<VEC>(vrow, idrow, kGroup, n, [&](int j, float val, int id) {
     r.c = __fadd_rn(r.c, __fmul_rn(val, count_f(mcol[id * kLanes])));
@@ -368,7 +407,7 @@ __device__ __noinline__ Count second_walk_rest(
   return r;
 }
 
-template <bool IN_KERNEL, bool EMIT, bool VEC>
+template <bool IN_KERNEL, bool EMIT, bool VEC, bool COMPACT>
 __global__ void __launch_bounds__(kMaxWarps * kLanes) hdp_z_lanes_kernel(
     const int32_t* __restrict__ tokens,  // (D, L)
     const uint8_t* __restrict__ mask,    // (D, L) bool
@@ -376,8 +415,8 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) hdp_z_lanes_kernel(
     const float* __restrict__ uni,       // (D, L, 3)
     const float* __restrict__ q_a,       // table mode: (V,)
     const float* __restrict__ apsi,      // prologue mode: (K,)
-    const float* __restrict__ fvals,     // (V, 2, W) or (V, W)
-    const int32_t* __restrict__ ivals,   // (V, 2, W) or (V, W)
+    const typename Tab<COMPACT>::F* __restrict__ fvals,  // (V, 2, W) or (V, W)
+    const typename Tab<COMPACT>::I* __restrict__ ivals,  // (V, 2, W) or (V, W)
     const int32_t* __restrict__ live,    // (V,)
     const int32_t* __restrict__ order,   // (D,) documents, longest first
     int32_t* __restrict__ z_out,         // (D, L), a copy of z_in
@@ -477,8 +516,8 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) hdp_z_lanes_kernel(
         const int z_old = cur.z;
         if (!cur.on) continue;  // padding: z_out holds z already
         const int v = cur.v;
-        const float* vrow = fvals + (int64_t)v * fstride;
-        const int32_t* idrow = ivals + (int64_t)v * fstride;
+        const auto* vrow = fvals + (int64_t)v * fstride;
+        const auto* idrow = ivals + (int64_t)v * fstride;
         mcol[z_old * kLanes] -= 1;  // m^{-i}, before the gather
 
         // First walk: qb (and in prologue mode q_a and the alias total),
@@ -526,17 +565,17 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes) hdp_z_lanes_kernel(
             }
             if (!r.hit && n > kGroup)
               r = second_walk_rest<VEC>(vrow, idrow, mcol, n, t, a.mono, r);
-            k_new = r.hit ? r.k : __ldg(idrow + min(r.cnt, W - 1));
+            k_new = r.hit ? r.k : widen(__ldg(idrow + min(r.cnt, W - 1)));
           } else {
             const int s = min((int)__fmul_rn(cur.u2, wf), W - 1);
             Entry e;
-            if (IN_KERNEL) {
+            if constexpr (IN_KERNEL) {
               e = alias_entry<VEC>(vrow, idrow, apsi_s, n, W, s, a.total);
             } else {
-              e.prob = __ldg(vrow + W + s);
-              e.alias = __ldg(idrow + W + s);
+              e.prob = widen(__ldg(vrow + W + s));
+              e.alias = widen(__ldg(idrow + W + s));
             }
-            k_new = __ldg(idrow + (cur.u3 < e.prob ? s : e.alias));
+            k_new = widen(__ldg(idrow + (cur.u3 < e.prob ? s : e.alias)));
           }
         }
 
@@ -592,12 +631,14 @@ struct Args {
   bool vec_pos;
 };
 
-template <bool IN_KERNEL, bool EMIT, bool VEC>
+template <bool IN_KERNEL, bool EMIT, bool VEC, bool COMPACT = false>
 int launch(const Args& a, cudaStream_t stream) {
+  using F = typename Tab<COMPACT>::F;
+  using I = typename Tab<COMPACT>::I;
   const size_t smem = (IN_KERNEL ? apsi_bytes(a.K) : 0) +
                       (size_t)a.warps * (a.K * kLanes * sizeof(uint16_t) +
                                          kStage * sizeof(int32_t));
-  auto fn = hdp_z_lanes_kernel<IN_KERNEL, EMIT, VEC>;
+  auto fn = hdp_z_lanes_kernel<IN_KERNEL, EMIT, VEC, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -608,8 +649,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const uint8_t*>(a.mask),
       static_cast<const int32_t*>(a.z_in), static_cast<const float*>(a.uni),
       static_cast<const float*>(a.q_a), static_cast<const float*>(a.apsi),
-      static_cast<const float*>(a.fvals),
-      static_cast<const int32_t*>(a.ivals),
+      static_cast<const F*>(a.fvals), static_cast<const I*>(a.ivals),
       static_cast<const int32_t*>(a.live),
       static_cast<const int32_t*>(a.order), static_cast<int32_t*>(a.z_out),
       static_cast<int32_t*>(a.m_out), static_cast<int32_t*>(a.dn), a.D, a.L,
@@ -617,10 +657,10 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool IN_KERNEL, bool EMIT>
+template <bool IN_KERNEL, bool EMIT, bool COMPACT = false>
 int launch_vec(bool vec_rows, const Args& a, cudaStream_t s) {
-  return vec_rows ? launch<IN_KERNEL, EMIT, true>(a, s)
-                  : launch<IN_KERNEL, EMIT, false>(a, s);
+  return vec_rows ? launch<IN_KERNEL, EMIT, true, COMPACT>(a, s)
+                  : launch<IN_KERNEL, EMIT, false, COMPACT>(a, s);
 }
 
 }  // namespace
@@ -634,24 +674,29 @@ int hdp_z_lanes_smem_limit(int device, int* out) {
 }
 
 // Launch one sweep on `stream`: prologue mode when apsi is not null
-// (q_a unused), table mode otherwise; dn null means no delta. vec_rows
-// != 0 reads the rows in 16-byte pieces (W % 4 == 0, rows 16-byte
-// aligned); vec_pos != 0 reads tokens, z, mask and uniforms 4 positions
-// at a time (L % 4 == 0, the arrays 16-byte and the mask 4-byte
-// aligned). Returns the cudaError_t of the launch (0 on success).
+// (q_a unused), table mode otherwise; dn null means no delta. compact
+// != 0 (table mode only) takes fvals as bf16 and ivals as int16.
+// vec_rows != 0 reads the rows 4 slots at a time (W % 4 == 0, rows
+// 16-byte aligned); vec_pos != 0 reads tokens, z, mask and uniforms 4
+// positions at a time (L % 4 == 0, the arrays 16-byte and the mask
+// 4-byte aligned). Returns the cudaError_t of the launch (0 on success).
 int hdp_z_lanes_launch(const void* tokens, const void* mask,
                        const void* z_in, const void* uni, const void* q_a,
                        const void* apsi, const void* fvals,
                        const void* ivals, const void* live,
                        const void* order, void* z_out, void* m_out, void* dn,
                        int D, int L, int K, int V, int W, int warps,
-                       int vec_rows, int vec_pos, void* stream) {
+                       int vec_rows, int vec_pos, int compact, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+  if (compact && (apsi != nullptr || K > 32768)) return (int)cudaErrorInvalidValue;
   const Args a{tokens, mask, z_in, uni, q_a, apsi, fvals, ivals, live,
                order, z_out, m_out, dn, D, L, K, V, W, warps,
                vec_pos != 0};
   const bool vr = vec_rows != 0;
+  if (compact)
+    return dn != nullptr ? launch_vec<false, true, true>(vr, a, s)
+                         : launch_vec<false, false, true>(vr, a, s);
   if (apsi != nullptr)
     return dn != nullptr ? launch_vec<true, true>(vr, a, s)
                          : launch_vec<true, false>(vr, a, s);

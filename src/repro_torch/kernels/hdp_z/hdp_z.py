@@ -17,6 +17,14 @@ back:
 - ``warp``: ``csrc/hdp_z.cu``, one document per warp, m as int32 and
   W-wide scratch lines in shared memory, every walk over all W slots.
 
+Table mode takes float32 ``fpack``/int32 ``ipack`` or compact tables,
+bf16 ``fpack``/int16 ``ipack`` (K <= 32768, ``COMPACT_MAX_K``), on
+both routes; each kernel widens a row's elements as it reads them, which
+is exact, so a sweep on compact tables is bitwise the one on their
+widened copies. Prologue mode reads float32 supports only. The tables
+stay in global memory on both routes, so their element size moves no
+route's shared memory.
+
 Both are bitwise equal to the plain version. ``hdp_z_cuda.launches``
 counts kernel launches, and nothing else;
 ``hdp_z_cuda.launches_by_route`` splits them by route.
@@ -42,13 +50,17 @@ MAX_WARPS_PER_BLOCK = 8
 LANES = 32
 # m is uint16 on the lanes route, and a count reaches at most L
 LANES_MAX_L = 2**15 - 1
+# compact tables hold topic ids as int16
+COMPACT_MAX_K = 2**15
+# table mode's (fpack, ipack) element types: float32 tables, compact tables
+TABLE_DTYPES = ((torch.float32, torch.int32), (torch.bfloat16, torch.int16))
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.hdp_z_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+    lib.hdp_z_launch.argtypes = [vp] * 11 + [ci] * 7 + [vp]
     lib.hdp_z_launch.restype = ci
     return lib
 
@@ -57,7 +69,7 @@ def _lib() -> ctypes.CDLL:
 def _lib_lanes() -> ctypes.CDLL:
     lib = _build.load(LANES_SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.hdp_z_lanes_launch.argtypes = [vp] * 13 + [ci] * 8 + [vp]
+    lib.hdp_z_lanes_launch.argtypes = [vp] * 13 + [ci] * 9 + [vp]
     lib.hdp_z_lanes_launch.restype = ci
     lib.hdp_z_lanes_smem_limit.argtypes = [ci, ctypes.POINTER(ci)]
     lib.hdp_z_lanes_smem_limit.restype = ci
@@ -116,7 +128,9 @@ def lanes_warps(kk: int, in_kernel: bool, limit: int) -> int:
 
 def route(kk: int, l: int, in_kernel: bool, limit: int) -> str:
     """The kernel that sweeps K topics over documents of length L on a
-    card whose blocks may opt in to ``limit`` bytes of shared memory."""
+    card whose blocks may opt in to ``limit`` bytes of shared memory.
+    The tables' element size (float32 or compact) does not enter: both
+    routes read the tables from global memory."""
     if l <= LANES_MAX_L and lanes_smem_bytes(kk, in_kernel) <= limit:
         return "lanes"
     return "warp"
@@ -145,8 +159,8 @@ def hdp_z_cuda(
     *,
     kk: int,
     q_a: torch.Tensor | None = None,    # table mode (V,) f32
-    fpack: torch.Tensor | None = None,  # table mode (V, 2, W) f32
-    ipack: torch.Tensor | None = None,  # table mode (V, 2, W) int32
+    fpack: torch.Tensor | None = None,  # table mode (V, 2, W) f32 or bf16
+    ipack: torch.Tensor | None = None,  # table mode (V, 2, W) int32 or int16
     apsi: torch.Tensor | None = None,   # prologue mode (K,) f32
     vals: torch.Tensor | None = None,   # prologue mode (V, W) f32
     ids: torch.Tensor | None = None,    # prologue mode (V, W) int32
@@ -158,6 +172,9 @@ def hdp_z_cuda(
         raise ValueError(
             "pass exactly one of (q_a, fpack, ipack) or (apsi, vals, ids)"
         )
+    if not in_kernel and fpack.dtype == torch.bfloat16 and kk > COMPACT_MAX_K:
+        raise ValueError(f"compact tables hold int16 topic ids: K={kk} is "
+                         f"above {COMPACT_MAX_K}")
     if tokens.device.type == "cpu":
         if in_kernel:
             return hdp_z_ref_prologue(tokens, mask, z, uniforms, apsi, vals,
@@ -176,9 +193,11 @@ def hdp_z_cuda(
         _check("ids", ids, torch.int32, (vv, w), dev)
     else:
         vv, _, w = fpack.shape
+        fdt, idt = next((pair for pair in TABLE_DTYPES if pair[0] == fpack.dtype),
+                        TABLE_DTYPES[0])
         _check("q_a", q_a, torch.float32, (vv,), dev)
-        _check("fpack", fpack, torch.float32, (vv, 2, w), dev)
-        _check("ipack", ipack, torch.int32, (vv, 2, w), dev)
+        _check("fpack", fpack, fdt, (vv, 2, w), dev)
+        _check("ipack", ipack, idt, (vv, 2, w), dev)
     _check("tokens", tokens, torch.int32, (d, l), dev)
     _check("mask", mask, torch.bool, (d, l), dev)
     _check("z", z, torch.int32, (d, l), dev)
@@ -198,6 +217,7 @@ def _launch(r: str, tokens, mask, z, uniforms, *, kk, q_a=None, fpack=None,
     d, l = tokens.shape
     in_kernel = apsi is not None
     fvals, ivals = (vals, ids) if in_kernel else (fpack, ipack)
+    compact = int(fvals.dtype == torch.bfloat16)
     vv, w = fvals.shape[0], fvals.shape[-1]
     # the lanes kernel writes live positions only: padding keeps its z
     z_out = z.clone() if r == "lanes" else torch.empty_like(z)
@@ -224,18 +244,21 @@ def _launch(r: str, tokens, mask, z, uniforms, *, kk, q_a=None, fpack=None,
                     f"and {lanes_smem_bytes(kk, in_kernel)} bytes of shared "
                     f"memory, above the card's {limit}-byte limit per block")
             live = (live_slots(vals, apsi, ids) if in_kernel
-                    else live_slots(fpack[:, 0]))
+                    else live_slots(fpack[:, 0].float()))
             # longest documents first, so a warp's 32 are of about one length
             order = torch.argsort(mask.sum(1, dtype=torch.int32), descending=True,
                                   stable=True).to(torch.int32)
-            vec_rows = (w % 4 == 0 and fvals.data_ptr() % 16 == 0
-                        and ivals.data_ptr() % 16 == 0)
+            # 4 slots a load: 16 bytes of float32/int32 or 8 of bf16/int16;
+            # with W % 4 == 0 every row and piece then stays aligned
+            vec_rows = (w % 4 == 0
+                        and fvals.data_ptr() % (4 * fvals.element_size()) == 0
+                        and ivals.data_ptr() % (4 * ivals.element_size()) == 0)
             vec_pos = (l % 4 == 0 and mask.data_ptr() % 4 == 0 and all(
                 t.data_ptr() % 16 == 0 for t in (tokens, z, uniforms)))
             err = _lib_lanes().hdp_z_lanes_launch(
                 *common, live.data_ptr(), order.data_ptr(), *outs, d, l, kk, vv, w,
                 lanes_warps(kk, in_kernel, limit), int(vec_rows), int(vec_pos),
-                stream)
+                compact, stream)
         elif r == "warp":
             per_warp = smem_bytes_per_warp(kk, w, in_kernel)
             if per_warp > limit:
@@ -246,7 +269,7 @@ def _launch(r: str, tokens, mask, z, uniforms, *, kk, q_a=None, fpack=None,
                     f"{5 if in_kernel else 1}*W*4 must fit")
             warps = max(1, min(MAX_WARPS_PER_BLOCK, limit // per_warp))
             err = _lib().hdp_z_launch(*common, *outs, d, l, kk, vv, w, warps,
-                                      stream)
+                                      compact, stream)
         else:
             raise ValueError(f"unknown hdp_z route {r!r}; one of {ROUTES}")
     if err:

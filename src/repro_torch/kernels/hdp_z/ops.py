@@ -83,8 +83,7 @@ def build_word_sparse_tables(
     Exact when every word appears in <= W topics; otherwise the smallest
     phi entries beyond W are dropped (see ``max_column_nnz``).
     ``compact=True`` packs fpack in bf16 and ipack in int16 (K <= 32768,
-    enforced); the plain sweep reads them, the CUDA kernel does not take
-    them yet. ``order`` is "value" (sorted by phi, the default) or
+    enforced); the plain sweep and both CUDA routes read them. ``order`` is "value" (sorted by phi, the default) or
     "topic" (ascending topic id, the conformance layout: every
     left-to-right partial sum over the slots then equals the same sum
     over a dense ascending-topic sweep). q_a and the alias rows use the
@@ -106,6 +105,33 @@ def build_word_sparse_tables(
         fpack = torch.stack([vals, aprob], dim=1)
         ipack = torch.stack([ids, aalias], dim=1)
     return q_a.contiguous(), fpack.contiguous(), ipack.contiguous()
+
+
+def build_word_sparse_tables_masked(
+    phi: torch.Tensor, psi: torch.Tensor, alpha: float, w: int,
+    u_mask: torch.Tensor, compact: bool = False, order: str = "value",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block-sparse ``build_word_sparse_tables`` (counterpart of the
+    reference's ``build_word_sparse_tables_masked``): only the vocabulary
+    rows flagged in ``u_mask`` (V,) bool are built, the rest stay zero.
+
+    Every step of the build is row-independent, so a flagged row is
+    bitwise the dense build's, and a sweep over tokens whose words are
+    flagged is bitwise unchanged; the cost falls from O(V K) to O(rows K).
+    The reference takes a static ``cap`` on the flagged rows (its fill
+    slots alias row 0); here the rows are gathered at their count.
+    """
+    v = phi.shape[1]
+    rows = torch.nonzero(u_mask, as_tuple=True)[0]
+    q_sub, f_sub, i_sub = build_word_sparse_tables(
+        phi[:, rows], psi, alpha, w, compact=compact, order=order)
+    q_a = torch.zeros((v,), dtype=q_sub.dtype, device=phi.device)
+    fpack = torch.zeros((v,) + f_sub.shape[1:], dtype=f_sub.dtype, device=phi.device)
+    ipack = torch.zeros((v,) + i_sub.shape[1:], dtype=i_sub.dtype, device=phi.device)
+    q_a[rows] = q_sub
+    fpack[rows] = f_sub
+    ipack[rows] = i_sub
+    return q_a, fpack, ipack
 
 
 def max_column_nnz(phi: torch.Tensor) -> int:

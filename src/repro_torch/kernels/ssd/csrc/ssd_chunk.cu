@@ -6,9 +6,10 @@
 // chunk length CL, state N and head dim P:
 //   a    = dt * A[h]                          (CL,)   log-decay steps
 //   cum  = inclusive cumsum(a)                (CL,)
-//   L    = exp(cum_i - cum_j) for i >= j, else 0          (CL, CL)
+//   seg  = sum of a_k over k = j+1..i         (CL, CL) for i >= j
+//   L    = exp(seg) for i >= j, else 0                  (CL, CL)
 //   y    = ((C B^T) o L) (x * dt)             (CL, P)  intra-chunk output
-//   st   = (B * exp(cum_last - cum))^T (x dt) (N, P)   chunk state
+//   st   = (B * exp(sum of a_k, k = j+1..CL-1))^T (x dt)  (N, P) chunk state
 //   dec  = exp(cum)                           (CL,)   decay from chunk start
 // The inter-chunk scan over chunks stays in PyTorch (kernels/ssd/ops.py).
 //
@@ -27,11 +28,15 @@
 // carry between blocks. The block stages x * dt (CL x P), B and C
 // (CL x N) and the cumulative decays in shared memory, then computes the
 // masked score rows in passes of 64 rows (64 x CL floats, 32 KB at
-// CL=128), so the whole block fits in about 82 KB of dynamic shared
+// CL=128), so the whole block fits in about 84 KB of dynamic shared
 // memory and two blocks share an SM. Only i >= j scores are computed,
-// and the y product runs over j <= i only. The scan over CL is one
-// thread's sequential float32 sum (CL dependent adds, negligible beside
-// the products). B and C are read through their strides, so the model's
+// and the y product runs over j <= i only. L and the decays to the
+// chunk's end come from segment sums, never from cum_i - cum_j, whose
+// two sums reach -1900 within a chunk on the model's dt and A and
+// cancel (kernels/ssd/ref.py::segsum): before each pass of score rows
+// one thread a column j carries seg[i][j] down the rows, adding a_i
+// from i = j + 1 (the plain version's order), and one thread sums cum
+// and the decays to the end sequentially, the latter from the end. B and C are read through their strides, so the model's
 // B and C, shared by all heads, come in as a stride-0 view and are never
 // copied per head.
 
@@ -52,9 +57,9 @@ __host__ __device__ inline int rows_per_pass(int CL) {
 }
 
 __host__ __device__ inline int smem_floats(int CL, int N, int P) {
-  // cum, wend (CL each); x*dt (CL x P); B (CL x (N+1)); C (CL x N);
-  // score rows (rows_per_pass x CL)
-  return 2 * CL + CL * P + CL * (N + 1) + CL * N + rows_per_pass(CL) * CL;
+  // a, cum, wend, the columns' running seg (CL each); x*dt (CL x P);
+  // B (CL x (N+1)); C (CL x N); score rows (rows_per_pass x CL)
+  return 4 * CL + CL * P + CL * (N + 1) + CL * N + rows_per_pass(CL) * CL;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -66,9 +71,11 @@ ssd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
   extern __shared__ float smem[];
   const int BP = N + 1;
   const int RB = rows_per_pass(CL);
-  float* cum = smem;             // CL
-  float* wend = cum + CL;        // CL: exp(cum_last - cum_j)
-  float* sx = wend + CL;         // CL x P: x * dt
+  float* av = smem;              // CL: a = dt * A
+  float* cum = av + CL;          // CL
+  float* wend = cum + CL;        // CL: dt, then exp(sum a_k, k = j+1..CL-1)
+  float* srun = wend + CL;       // CL: column j's seg at the last row seen
+  float* sx = srun + CL;         // CL x P: x * dt
   float* sb = sx + CL * P;       // CL x BP
   float* sc = sb + CL * BP;      // CL x N
   float* ss = sc + CL * N;       // RB x CL
@@ -82,16 +89,14 @@ ssd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
   const float* bb = bm + b * sd.b[0] + h * sd.b[2];
   const float* cb = cm + b * sd.c[0] + h * sd.c[2];
 
-  for (int i = tid; i < CL; i += kThreads) wend[i] = dtb[(t0 + i) * sd.dt[1]];
-  __syncthreads();
-  if (tid == 0) {
-    const float ah = a[h];
-    float run = 0.f;
-    for (int i = 0; i < CL; ++i) {
-      run += wend[i] * ah;
-      cum[i] = run;
-    }
+  const float ah = a[h];
+  for (int i = tid; i < CL; i += kThreads) {
+    const float d = dtb[(t0 + i) * sd.dt[1]];
+    wend[i] = d;
+    av[i] = __fmul_rn(d, ah);
+    srun[i] = 0.f;
   }
+  __syncthreads();
   for (int e = tid; e < CL * P; e += kThreads) {
     const int i = e / P, p = e % P;
     sx[e] = xb[(t0 + i) * sd.x[1] + p] * wend[i];
@@ -101,18 +106,40 @@ ssd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
     sb[i * BP + n] = bb[(t0 + i) * sd.b[1] + n];
     sc[e] = cb[(t0 + i) * sd.c[1] + n];
   }
+  __syncthreads();  // x * dt has read wend's dt
+  if (tid == 0) {
+    float run = 0.f, rev = 0.f;
+    for (int i = 0; i < CL; ++i) {
+      run = __fadd_rn(run, av[i]);
+      cum[i] = run;
+      const int j = CL - 1 - i;
+      wend[j] = rev;
+      rev = __fadd_rn(rev, av[j]);
+    }
+  }
   __syncthreads();
 
   float* decb = dec + ((long long)b * S + t0) * H + h;
   for (int i = tid; i < CL; i += kThreads) {
     decb[(long long)i * H] = expf(cum[i]);
-    wend[i] = expf(cum[CL - 1] - cum[i]);
+    wend[i] = expf(wend[i]);
   }
 
   float* yb = y + (((long long)b * S + t0) * H + h) * P;
   for (int r0 = 0; r0 < CL; r0 += RB) {
     const int rows = min(RB, CL - r0);
     __syncthreads();  // the previous pass's rows are no longer read
+    // seg of this pass's rows: column j carries its sum down the rows
+    for (int j = tid; j < CL; j += kThreads) {
+      float run = srun[j];
+      for (int ir = 0; ir < rows; ++ir) {
+        const int i = r0 + ir;
+        if (i > j) run = __fadd_rn(run, av[i]);
+        ss[ir * CL + j] = run;
+      }
+      srun[j] = run;
+    }
+    __syncthreads();
     for (int e = tid; e < rows * CL; e += kThreads) {
       const int i = r0 + e / CL, j = e % CL;
       float v = 0.f;
@@ -121,7 +148,7 @@ ssd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
         const float* br = sb + j * BP;
         float dot = 0.f;
         for (int n = 0; n < N; ++n) dot += cr[n] * br[n];
-        v = dot * expf(cum[i] - cum[j]);
+        v = dot * expf(ss[e]);
       }
       ss[e] = v;
     }

@@ -9,10 +9,15 @@
 // cores. It computes what the TPU kernel computes, float32 in and out,
 // for each (batch b, chunk c, head h):
 //   a    = dt * A[h],  cum = inclusive cumsum(a)           (CL,)
-//   L    = exp(cum_i - cum_j) for i >= j, else 0            (CL, CL)
+//   seg  = sum of a_k over k = j+1..i, for i >= j           (CL, CL)
+//   L    = exp(seg) for i >= j, else 0                      (CL, CL)
 //   y    = ((C B^T) o L) (x * dt)                           (CL, P)
-//   st   = (B * exp(cum_last - cum))^T (x * dt)             (N, P)
+//   st   = (B * exp(sum of a_k over k = j+1..CL-1))^T (x * dt)  (N, P)
 //   dec  = exp(cum)                                         (CL,)
+// L and the decay to the chunk's end are taken from segment sums, not
+// as exp(cum_i - cum_j): on the model's dt and A cum reaches -1900
+// within a chunk, and the difference of two such sums loses the digits
+// that exp(seg) needs near the diagonal (kernels/ssd/ref.py::segsum).
 //
 // What bounds it on this card. At the serving shape (B=4, S=512, H=50,
 // P=64, N=16, CL=128) the function moves 56.8 MB (x in and y out, 26 MB
@@ -44,9 +49,15 @@
 //    It computes a row tile in 16-column blocks, two blocks at a time,
 //    each block's two k-steps of scores together.
 //  - The scores never go through shared memory: G's accumulators are
-//    scaled in registers by exp(cum_i - cum_j) * dt_j, masked to 0 for
-//    j > i before the exp (cum reaches -1400 within a chunk on the
-//    model's inputs, so exp(cum_i) * exp(-cum_j) would overflow). The
+//    scaled in registers by exp(seg_ij) * dt_j, masked to 0 for j > i
+//    before the exp. seg is built from 16-row sub-blocks so that no sum
+//    in it is a difference: for j in block J below i's block I, seg =
+//    (sfx_j + mid_JI) + pre_i, with pre_i the sum from I's first row to
+//    i, sfx_j the sum from j + 1 to J's last row and mid_JI the sum of
+//    the whole blocks between, all sums of same-sign steps; within a
+//    diagonal block each warp writes seg into a 16 x 16 lower-triangular
+//    table, one column a lane, summed from k = j + 1 down the rows (the
+//    plain version's order). The
 //    accumulator holds columns 2q and 2q+1 of a quad's rows where the A
 //    operand wants columns q and q+4, so y's k index is permuted instead
 //    of the scores: physical k = q, q+4 stands for j = 2q, 2q+1, and x
@@ -62,11 +73,11 @@
 //    in shared memory; padding is exact (zero rows of B, C, x and dt).
 //    Row strides P + 4 and N + 4 (odd multiples of 4 floats) keep every
 //    fragment load free of bank conflicts.
-//  - cum is the plain version's sequential float32 sum (one lane, the
-//    products dt * A computed by the warp first). Another order moves y
-//    on the model's inputs by several times what the three TF32 passes
-//    do, near the tolerance itself, because cum_i - cum_j cancels where
-//    |cum| passes 1e3 (tests/test_torch_ssd.py).
+//  - One lane of warp 0 sums cum (for dec) and the reverse sums to the
+//    chunk's end (for the state) sequentially, the next 8 steps loaded
+//    while 8 are added; meanwhile one lane of warp 1 per 16-row block
+//    sums its pre and sfx lines and its total, then its row of mid sums;
+//    each lane of a diagonal table's column sums from registers.
 //  - y and the states leave straight from the accumulators: each warp
 //    store fills the whole 32-byte sectors of eight rows. (Staging y
 //    through shared memory would need the x buffer, which the other
@@ -85,16 +96,27 @@ constexpr int kMaxP = 64;
 constexpr int kMaxDevices = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// A compile-time flag passed to a generic lambda.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
 struct Strides {  // in elements: batch, sequence, head (last dim is 1)
   long long x[3], dt[3], b[3], c[3];
 };
 
+constexpr int kMaxBlocks = kMaxCL / 16;  // 16-row sub-blocks of a chunk
+constexpr int kDiag = 16 * 17 / 2;        // a lower-triangular 16 x 16 table
+
 // Shared memory in floats: two stages of x (CLp rows of xs), B and C
-// (CLp rows of bs each) and dt (CLp); then cum and w*dt (CLp each).
+// (CLp rows of bs each) and dt (CLp); then pre, sfx and w*dt (CLp each),
+// the mid sums between sub-blocks (kMaxBlocks^2, block totals on the
+// diagonal) and one diagonal-block seg table a warp.
 struct Layout {
   int CLp, Pp, Np, xs, bs;
   int x, b, c, dt, stage;
-  int cum, wdt, total;
+  int pre, sfx, wdt, blk, diag, total;
 };
 
 __host__ __device__ inline Layout make_layout(int CL, int N, int P) {
@@ -109,9 +131,12 @@ __host__ __device__ inline Layout make_layout(int CL, int N, int P) {
   L.c = L.b + L.CLp * L.bs;
   L.dt = L.c + L.CLp * L.bs;
   L.stage = L.dt + L.CLp;  // a multiple of 16 floats: CLp is
-  L.cum = 2 * L.stage;
-  L.wdt = L.cum + L.CLp;
-  L.total = L.wdt + L.CLp;
+  L.pre = 2 * L.stage;
+  L.sfx = L.pre + L.CLp;
+  L.wdt = L.sfx + L.CLp;
+  L.blk = L.wdt + L.CLp;
+  L.diag = L.blk + kMaxBlocks * kMaxBlocks;
+  L.total = L.diag + kWarps * kDiag;
   return L;
 }
 
@@ -253,8 +278,11 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_sm90(Params pr) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, q = lane % 4;
   const int CL = pr.CL, P = pr.P, N = pr.N;
-  float* cum = smem + L.cum;
+  float* pre = smem + L.pre;
+  float* sfx = smem + L.sfx;
   float* wdt = smem + L.wdt;
+  float* blk = smem + L.blk;
+  float* diag = smem + L.diag + warp * kDiag;
   const Rows xr(P / 4), br(N / 4);
 
   // Padding (rows past CL, columns past P and N) stays zero: the copies
@@ -285,7 +313,6 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_sm90(Params pr) {
   int tile = blockIdx.x;
   if (tile < pr.tiles) load_tile(pr, L, xr, br, smem, Tile(tile, pr));
   cp_async_commit();
-  float a_next = tile < pr.tiles ? pr.a[tile % pr.H] : 0.f;  // A[h], a tile ahead
   for (int it = 0; tile < pr.tiles; ++it, tile += gridDim.x) {
     float* stage = smem + (it & 1) * L.stage;
     cp_async_wait_all();
@@ -301,34 +328,100 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_sm90(Params pr) {
     const float* cst = stage + L.c;
     const float* dts = stage + L.dt;
 
-    // ---- cum, w * dt and dec: the plain version's sequential sum ----
+    // ---- dec, w * dt and the segment-sum lines ----
+    // Warp 0: lane 0 sums cum and the sums from j + 1 to the chunk's end
+    // sequentially, then the warp turns them into dec and w * dt. Warp
+    // 1, meanwhile: one lane per 16-row block sums its pre and sfx lines
+    // and its total, then its row of mid sums. Every load of dt is issued
+    // ahead of the adds that wait on it: the compiler cannot move a
+    // shared load past the shared stores between.
+    const float ah = pr.a[t.h];
+    const int RT = L.CLp / 16;
     if (warp == 0) {
-      const float ah = a_next;
-      if (next < pr.tiles) a_next = pr.a[next % pr.H];
-      for (int i = lane; i < L.CLp; i += 32) cum[i] = __fmul_rn(dts[i], ah);
-      __syncwarp();
+      // cum goes to warp 0's diagonal table, free until after the barrier
+      float* cum = diag;
       if (lane == 0) {
-        // 8 steps loaded ahead of their adds; a padded step adds -0,
-        // so the padding's cum is the last real one
-        float run = 0.f;
+        // a padded step adds -0, so the padding's cum is the last real
+        // one and its sums to the end are 0
+        float run = 0.f, rev = 0.f;
+        float4 u = *reinterpret_cast<const float4*>(dts);
+        float4 v = *reinterpret_cast<const float4*>(dts + 4);
+        float4 w = *reinterpret_cast<const float4*>(dts + L.CLp - 8);
+        float4 x = *reinterpret_cast<const float4*>(dts + L.CLp - 4);
         for (int i0 = 0; i0 < L.CLp; i0 += 8) {
-          const float4 u = *reinterpret_cast<const float4*>(cum + i0);
-          const float4 v = *reinterpret_cast<const float4*>(cum + i0 + 4);
-          const float s[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
-          float out[8];
+          const int r0 = L.CLp - 8 - i0;
+          const float f[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+          const float r[8] = {w.x, w.y, w.z, w.w, x.x, x.y, x.z, x.w};
+          if (i0 + 8 < L.CLp) {  // the next 8 steps of each, ahead
+            u = *reinterpret_cast<const float4*>(dts + i0 + 8);
+            v = *reinterpret_cast<const float4*>(dts + i0 + 12);
+            w = *reinterpret_cast<const float4*>(dts + r0 - 8);
+            x = *reinterpret_cast<const float4*>(dts + r0 - 4);
+          }
+          float fo[8], ro[8];
 #pragma unroll
-          for (int k = 0; k < 8; ++k) out[k] = run = __fadd_rn(run, s[k]);
-          *reinterpret_cast<float4*>(cum + i0) = make_float4(out[0], out[1], out[2], out[3]);
-          *reinterpret_cast<float4*>(cum + i0 + 4) = make_float4(out[4], out[5], out[6], out[7]);
+          for (int k = 0; k < 8; ++k) {
+            fo[k] = run = __fadd_rn(run, __fmul_rn(f[k], ah));
+            ro[7 - k] = rev;
+            rev = __fadd_rn(rev, __fmul_rn(r[7 - k], ah));
+          }
+          *reinterpret_cast<float4*>(cum + i0) = make_float4(fo[0], fo[1], fo[2], fo[3]);
+          *reinterpret_cast<float4*>(cum + i0 + 4) = make_float4(fo[4], fo[5], fo[6], fo[7]);
+          *reinterpret_cast<float4*>(wdt + r0) = make_float4(ro[0], ro[1], ro[2], ro[3]);
+          *reinterpret_cast<float4*>(wdt + r0 + 4) = make_float4(ro[4], ro[5], ro[6], ro[7]);
         }
       }
       __syncwarp();
-      const float last = cum[CL - 1];
       float* decb = pr.dec + ((long long)t.b * pr.S + t.t0) * pr.H + t.h;
       for (int i = lane; i < L.CLp; i += 32) {
-        const float ci = cum[i];
-        wdt[i] = expf(last - ci) * dts[i];
-        if (i < CL) decb[(long long)i * pr.H] = expf(ci);
+        wdt[i] = expf(wdt[i]) * dts[i];
+        if (i < CL) decb[(long long)i * pr.H] = expf(cum[i]);
+      }
+    } else if (warp == 1) {
+      if (lane < RT) {
+        // block `lane`: pre from its first row, sfx from j + 1 to its
+        // last row, and its total on the diagonal of blk
+        const int o = 16 * lane;
+        float a16[16];
+#pragma unroll
+        for (int k = 0; k < 16; k += 4) {
+          const float4 d4 = *reinterpret_cast<const float4*>(dts + o + k);
+          a16[k] = __fmul_rn(d4.x, ah);
+          a16[k + 1] = __fmul_rn(d4.y, ah);
+          a16[k + 2] = __fmul_rn(d4.z, ah);
+          a16[k + 3] = __fmul_rn(d4.w, ah);
+        }
+        float po[16], so[16];
+        float p = 0.f, q = 0.f;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          po[k] = p = k == 0 ? a16[0] : __fadd_rn(p, a16[k]);
+          so[15 - k] = q;
+          q = __fadd_rn(q, a16[15 - k]);
+        }
+#pragma unroll
+        for (int k = 0; k < 16; k += 4) {
+          *reinterpret_cast<float4*>(pre + o + k) =
+              make_float4(po[k], po[k + 1], po[k + 2], po[k + 3]);
+          *reinterpret_cast<float4*>(sfx + o + k) =
+              make_float4(so[k], so[k + 1], so[k + 2], so[k + 3]);
+        }
+        blk[lane * (kMaxBlocks + 1)] = p;
+      }
+      __syncwarp();
+      if (lane < RT) {
+        // mid sums of block J = lane: blk[J][I] = the totals of J+1..I-1
+        float tot[kMaxBlocks];
+#pragma unroll
+        for (int I = 0; I < kMaxBlocks; ++I)
+          tot[I] = I < RT ? blk[I * (kMaxBlocks + 1)] : 0.f;
+        float mid = 0.f;
+#pragma unroll
+        for (int I = 1; I < kMaxBlocks; ++I)
+          if (I > lane && I < RT) {
+            blk[lane * kMaxBlocks + I] = mid;
+            mid = __fadd_rn(mid, tot[I]);
+          }
       }
     }
     __syncthreads();
@@ -342,6 +435,32 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_sm90(Params pr) {
         if (rr == 1 && !two) break;
         const int rt = rr == 0 ? t_hi : t_lo;
         const int i0 = 16 * rt + g;
+        // this row tile's diagonal block: seg[r][c] at diag[r(r+1)/2 + c],
+        // column c summed by lane c from row c + 1 down
+        __syncwarp();  // the previous row tile's reads are done
+        if (lane < 16) {
+          const int o = 16 * rt;
+          float a16[16];
+#pragma unroll
+          for (int k = 0; k < 16; k += 4) {
+            const float4 d4 = *reinterpret_cast<const float4*>(dts + o + k);
+            a16[k] = __fmul_rn(d4.x, ah);
+            a16[k + 1] = __fmul_rn(d4.y, ah);
+            a16[k + 2] = __fmul_rn(d4.z, ah);
+            a16[k + 3] = __fmul_rn(d4.w, ah);
+          }
+          float run = 0.f;
+          diag[lane * (lane + 1) / 2 + lane] = 0.f;
+#pragma unroll
+          for (int r = 1; r < 16; ++r)
+            if (r > lane) {
+              run = __fadd_rn(run, a16[r]);
+              diag[r * (r + 1) / 2 + lane] = run;
+            }
+        }
+        __syncwarp();
+        const float* dg0 = diag + g * (g + 1) / 2;             // row g
+        const float* dg1 = diag + (g + 8) * (g + 9) / 2;       // row g + 8
         // C's rows i0, i0 + 8 as A operands
         uint32_t ch[KN][4], cl[KN][4];
 #pragma unroll
@@ -353,14 +472,18 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_sm90(Params pr) {
           split(in ? cst[i0 * L.bs + n0 + 4] : 0.f, ch[kn][2], cl[kn][2]);
           split(in ? cst[(i0 + 8) * L.bs + n0 + 4] : 0.f, ch[kn][3], cl[kn][3]);
         }
-        const float ci0 = cum[i0], ci1 = cum[i0 + 8];
+        const float pi0 = pre[i0], pi1 = pre[i0 + 8];
         float acc[NTW][4];
 #pragma unroll
         for (int u = 0; u < NTW; ++u)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[u][e] = 0.f;
-#pragma unroll 2
-        for (int m = 0; m <= rt; ++m) {
+        // the 16-column block m of this row tile: its two k-steps of
+        // scores, then y's; the diagonal block (m == rt) reads seg from
+        // the warp's table, the others add their three lines, so the
+        // loop over the blocks below the diagonal has no branch
+        auto column_block = [&](const int m, auto diagonal) {
+          constexpr bool on_diagonal = decltype(diagonal)::value;
           uint32_t sh[2][4], sl[2][4];
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
@@ -383,13 +506,25 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_sm90(Params pr) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) d[0][e] += d[kn][e];
             const int jc = jb + 2 * q;
-            const float2 cj = *reinterpret_cast<const float2*>(cum + jc);
             const float2 dj = *reinterpret_cast<const float2*>(dts + jc);
-            // d holds (i0, jc), (i0, jc+1), (i0+8, jc), (i0+8, jc+1)
-            const float e0 = jc <= i0 ? ci0 - cj.x : -INFINITY;
-            const float e1 = jc + 1 <= i0 ? ci0 - cj.y : -INFINITY;
-            const float e2 = jc <= i0 + 8 ? ci1 - cj.x : -INFINITY;
-            const float e3 = jc + 1 <= i0 + 8 ? ci1 - cj.y : -INFINITY;
+            // d holds (i0, jc), (i0, jc+1), (i0+8, jc), (i0+8, jc+1);
+            // their seg, -inf above the diagonal
+            float e0, e1, e2, e3;
+            if constexpr (!on_diagonal) {
+              const float2 sj = *reinterpret_cast<const float2*>(sfx + jc);
+              const float mid = blk[m * kMaxBlocks + rt];
+              const float s0 = __fadd_rn(sj.x, mid), s1 = __fadd_rn(sj.y, mid);
+              e0 = __fadd_rn(s0, pi0);
+              e1 = __fadd_rn(s1, pi0);
+              e2 = __fadd_rn(s0, pi1);
+              e3 = __fadd_rn(s1, pi1);
+            } else {
+              const int c = 8 * half + 2 * q;  // jc's column in the block
+              e0 = c <= g ? dg0[c] : -INFINITY;
+              e1 = c + 1 <= g ? dg0[c + 1] : -INFINITY;
+              e2 = c <= g + 8 ? dg1[c] : -INFINITY;
+              e3 = c + 1 <= g + 8 ? dg1[c + 1] : -INFINITY;
+            }
             // the A operand at physical k = q (j = jc) and q + 4 (jc + 1)
             split(d[0][0] * exp2_approx(e0 * kLog2e) * dj.x, sh[half][0], sl[half][0]);
             split(d[0][2] * exp2_approx(e2 * kLog2e) * dj.x, sh[half][1], sl[half][1]);
@@ -405,7 +540,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_sm90(Params pr) {
               mma3_add(acc[u], sh[half], sl[half], xh, xl);
             }
           }
-        }
+        };
+#pragma unroll 2
+        for (int m = 0; m < rt; ++m) column_block(m, Flag<false>{});
+        column_block(rt, Flag<true>{});
         // y leaves from the accumulators: a warp's store fills eight
         // rows' 32-byte sectors
         float* yr = pr.y + (((long long)t.b * pr.S + t.t0) * pr.H + t.h) * P;

@@ -32,9 +32,45 @@ def ssd_ref(x, dt, a, bmat, cmat, h0=None):
     return torch.stack(ys, dim=1), hcur
 
 
+def segsum(steps: torch.Tensor, dim: int) -> torch.Tensor:
+    """Segment sums of ``steps`` along ``dim`` (length CL): a new dim
+    after it holds j, and seg[..., i, j, ...] = sum of steps[k] over
+    k = j+1..i for i >= j, -inf above the diagonal.
+
+    Each is its own float32 sum from k = j+1 upward (a cumsum over the
+    i dim of a masked (CL, CL) matrix, as Mamba-2's ``segsum`` takes
+    it). The steps share one sign, so no sum cancels: exp(seg) keeps its
+    relative precision where cum_i - cum_j, the difference of two sums
+    that reach -1900 within a chunk on the model's dt and A, does not.
+    """
+    cl = steps.shape[dim]
+    ii = torch.arange(cl, device=steps.device)
+    shape = [1] * (steps.dim() + 1)
+    shape[dim], shape[dim + 1] = cl, cl
+    rep = steps.unsqueeze(dim + 1)                 # [.., i, 1, ..] = a_i
+    below = (ii[:, None] > ii[None, :]).reshape(shape)
+    seg = torch.cumsum(torch.where(below, rep, torch.zeros((), dtype=steps.dtype,
+                                                             device=steps.device)),
+                       dim=dim)
+    tri = (ii[:, None] >= ii[None, :]).reshape(shape)
+    return torch.where(tri, seg, float("-inf"))
+
+
+def decay_to_end(steps: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum of steps[k] over k = j+1..CL-1 along ``dim``: a reverse
+    cumsum, from the chunk's end down, shifted by one (0 at j = CL-1)."""
+    rev = torch.flip(torch.cumsum(torch.flip(steps, [dim]), dim), [dim])
+    return torch.cat([rev.narrow(dim, 1, rev.shape[dim] - 1),
+                      torch.zeros_like(rev.narrow(dim, 0, 1))], dim)
+
+
 def _chunk_terms(x, dt, a, bmat, cmat, chunk):
     """Per-chunk terms of SSD over S = NC * chunk: (cum (b,nc,cl,h),
-    y_intra (b,nc,cl,h,p), st (b,nc,h,n,p), cr (b,nc,cl,h,n))."""
+    y_intra (b,nc,cl,h,p), st (b,nc,h,n,p), cr (b,nc,cl,h,n)).
+
+    cum = cumsum(dt A) gives only dec = exp(cum), a prefix sum with no
+    difference in it; the pairwise decays L and the decays to the
+    chunk's end come from segment sums (``segsum``, ``decay_to_end``)."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     nc, cl = s // chunk, chunk
@@ -42,16 +78,13 @@ def _chunk_terms(x, dt, a, bmat, cmat, chunk):
     dtr = dt.reshape(b, nc, cl, h).float()
     br = bmat.reshape(b, nc, cl, h, n).float()
     cr = cmat.reshape(b, nc, cl, h, n).float()
-    cum = torch.cumsum(dtr * a[None, None, None, :], dim=2)  # inclusive
-    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (b,nc,i,j,h)
-    ii = torch.arange(cl, device=x.device)
-    tri = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    # mask before exp: above the diagonal seg > 0 and exp could overflow
-    ldec = torch.exp(torch.where(tri, seg, -1e30))
+    steps = dtr * a[None, None, None, :]
+    cum = torch.cumsum(steps, dim=2)                 # inclusive
+    ldec = torch.exp(segsum(steps, 2))               # (b,nc,i,j,h), 0 above
     xdt = xr * dtr[..., None]
     scores = torch.einsum("bcihn,bcjhn->bcijh", cr, br) * ldec
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xdt)
-    decay_end = torch.exp(cum[:, :, -1:, :] - cum)
+    decay_end = torch.exp(decay_to_end(steps, 2))
     st = torch.einsum("bcjhn,bcjhp->bchnp", br * decay_end[..., None], xdt)
     return cum, y_intra, st, cr
 

@@ -17,6 +17,11 @@ from the shape, or raises; nothing falls back:
 - ``cuda_cores``: every other shape, ``csrc/ssd_chunk.cu`` (the products
   on the CUDA cores from shared memory).
 
+Both kernels take the pairwise decays L and the decays to the chunk's
+end from segment sums of dt A (``ref.segsum``), never as exp(cum_i -
+cum_j), whose two large sums cancel on the model's dt and A; cum gives
+only dec = exp(cum).
+
 Inputs are read through their strides as long as the last dim is
 contiguous, so B and C shared by all heads may come as a stride-0
 ``expand``. ``ssd_intra_chunk.launches`` counts kernel launches, and
@@ -89,20 +94,23 @@ def _smem_limit(device_index: int) -> int:
 def sm90_smem_bytes(chunk: int, n: int, p: int) -> int:
     """Dynamic shared memory of one CTA of the tensor-core kernel: two
     stages of x (rows of P + 4 floats, P padded to 8), B and C (rows of
-    N + 4, N padded to 8) and dt, then cum and w*dt, over chunk rows
-    padded to 16. ``ssd_chunk_sm90_smem_bytes`` in the source computes
+    N + 4, N padded to 8) and dt, over chunk rows padded to 16; then the
+    segment-sum lines pre and sfx and w*dt (a padded chunk each), the
+    mid sums between its 16-row sub-blocks (8 x 8) and one 16 x 16
+    lower-triangular table of the diagonal block's segment sums for each
+    of the 4 warps. ``ssd_chunk_sm90_smem_bytes`` in the source computes
     the same."""
     clp = -(-chunk // 16) * 16
     pp, np_ = -(-p // 8) * 8, -(-n // 8) * 8
     stage = clp * (pp + 4) + 2 * clp * (np_ + 4) + clp
-    return 4 * (2 * stage + 2 * clp)
+    return 4 * (2 * stage + 3 * clp + 8 * 8 + 4 * (16 * 17 // 2))
 
 
 def route(chunk: int, n: int, p: int) -> str:
     """The kernel that runs the intra-chunk pass at chunk length
     ``chunk``, state ``n`` and head dim ``p`` on the card. Every shape
     the tensor-core kernel takes fits an H100 block's shared memory
-    (145,408 B at most, against 232,448)."""
+    (148,352 B at most, against 232,448)."""
     if (chunk <= SM90_MAX_CHUNK and 0 < p <= SM90_MAX_P and 0 < n <= SM90_MAX_N
             and p % 4 == 0 and n % 4 == 0):
         return "tensor_cores"

@@ -55,8 +55,8 @@ PATCHES = {
   for (int e = 0; e < 4; ++e) acc[e] += d[e];""",
         "  mma3(acc, ah, al, bh, bl);")],
     "one_block": [(
-        "#pragma unroll 2\n        for (int m = 0; m <= rt; ++m) {",
-        "#pragma unroll 1\n        for (int m = 0; m <= rt; ++m) {")],
+        "#pragma unroll 2\n        for (int m = 0; m < rt; ++m)",
+        "#pragma unroll 1\n        for (int m = 0; m < rt; ++m)")],
     "exp2f": [(
         "  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) : \"f\"(x));",
         "  y = exp2f(x);")],

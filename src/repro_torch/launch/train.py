@@ -4,8 +4,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train --hdp ap --scale 0.01 \
       --iters 2 --topics 20 --max-len 64            # on the card
   ... --device cpu                                  # plain versions, CPU
+  ... --stream --block-docs 16 --ckpt DIR --ckpt-every 1 --ckpt-every-blocks 2
+                                                    # block-streamed, resumable
 
 Prints one dict per ``--log-every`` iterations, then a JSON summary line.
+With ``--stream`` the corpus is swept block by block
+(``core/streaming.py``); a rerun with the same ``--ckpt`` resumes from
+its latest checkpoint, mid-iteration too, and prints
+``restored streaming state: iteration N, block cursor C``.
 """
 
 from __future__ import annotations
@@ -19,16 +25,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import hdp as H
+from repro_torch.core.streaming import StreamingHDP
+from repro_torch.data.stream import ShardedCorpusStore
 from repro_torch.data.synthetic import paper_corpus
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdp_z import hdp_z as HZ
 
 
-def prepare_hdp(args: argparse.Namespace):
-    """Corpus, config, device tensors and initial state of an HDP run:
-    ``(corpus, cfg, tokens, mask, state)``."""
-    device = resolve_device(args.device)
+def hdp_corpus_config(args: argparse.Namespace):
+    """The synthetic paper corpus and the sampler's config of a run."""
     rng = np.random.default_rng(args.seed)
     corpus = paper_corpus(args.hdp, rng, scale=args.scale, max_len=args.max_len)
     k_topics = args.topics
@@ -36,6 +42,14 @@ def prepare_hdp(args: argparse.Namespace):
               else args.bucket)
     cfg = H.HDPConfig(K=k_topics, V=corpus.V, bucket=bucket,
                       z_impl=args.z_impl, hist_cap=min(corpus.max_len, 256))
+    return corpus, cfg
+
+
+def prepare_hdp(args: argparse.Namespace):
+    """Corpus, config, device tensors and initial state of an HDP run:
+    ``(corpus, cfg, tokens, mask, state)``."""
+    device = resolve_device(args.device)
+    corpus, cfg = hdp_corpus_config(args)
     tokens = torch.from_numpy(corpus.tokens).to(device)
     mask = torch.from_numpy(corpus.mask).to(device)
     state = H.init_state(H.make_generator(args.seed, device), tokens, mask, cfg)
@@ -91,6 +105,67 @@ def train_hdp(
     return state, history, summary
 
 
+def train_hdp_streaming(args: argparse.Namespace):
+    """The block-streamed run (counterpart of the reference's
+    ``train_hdp_streaming``): the corpus swept ``--block-docs`` documents
+    at a time, z slabs in ``--z-store`` (the disk store's files under
+    ``--z-dir``, by default the checkpoint directory, which makes saves
+    nearly free), resumable mid-iteration from ``--ckpt``. The clock
+    covers the iterations alone; checkpoint saves between iterations and
+    the logging are off it. Returns the final state, the logged history
+    and the printed summary."""
+    device = resolve_device(args.device)
+    corpus, cfg = hdp_corpus_config(args)
+    store = ShardedCorpusStore.from_corpus(corpus, args.block_docs)
+    stream = StreamingHDP(cfg, store, device=device, z_store=args.z_store,
+                          z_dir=args.z_dir or args.ckpt, z_pack=args.z_pack,
+                          block_sparse_tables=args.block_sparse_tables)
+    if device.type == "cuda" and cfg.z_impl == "cuda":
+        _build.build_all(HZ.SOURCES)
+    state, resume_kw = None, {}
+    if args.ckpt:
+        state, resume_kw = stream.restore(args.ckpt)
+        if state is not None:
+            print(f"restored streaming state: iteration {state.it}, "
+                  f"block cursor {resume_kw.get('start_block', 0)}", flush=True)
+    if state is None:
+        state = stream.init_state(args.seed)
+    print(f"streaming: {store.num_blocks} blocks x {store.block_docs} docs "
+          f"(corpus {store.num_docs} docs, {store.num_tokens} tokens), z slabs "
+          f"in {state.z_blocks.kind} as {state.z_blocks.dtype}", flush=True)
+    history = []
+    dt = 0.0
+    for i in range(args.iters):
+        synchronize(device)
+        t0 = time.perf_counter()
+        state = stream.iteration(state, ckpt_dir=args.ckpt,
+                                 ckpt_every_blocks=args.ckpt_every_blocks,
+                                 **resume_kw)
+        synchronize(device)
+        dt += time.perf_counter() - t0
+        resume_kw = {}
+        if (i + 1) % args.log_every == 0:
+            history.append({
+                "iter": state.it,
+                "active_topics": int((state.n.sum(1) > 0).sum()),
+                "flag_tokens": int(state.n[-1].sum()),
+            })
+            print(history[-1], flush=True)
+        if args.ckpt and (i + 1) % args.ckpt_every == 0:
+            stream.save(args.ckpt, state)
+    summary = {
+        "corpus": args.hdp, "tokens": store.num_tokens, "mode": "streaming",
+        "blocks": store.num_blocks, "iters": args.iters,
+        "z_store": state.z_blocks.kind, "z_dtype": state.z_blocks.dtype.name,
+        "block_sparse_tables": stream.block_sparse_tables,
+        "sec_per_iter": dt / args.iters,
+        "tokens_per_s": store.num_tokens * args.iters / dt,
+        "device": str(device), "z_impl": cfg.z_impl,
+    }
+    print(json.dumps(summary), flush=True)
+    return state, history, summary
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hdp", required=True, help="ap|cgcbib|neurips|pubmed")
@@ -106,6 +181,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda with no card is an error")
     ap.add_argument("--z-impl", default="cuda", choices=H.Z_IMPLS)
+    ap.add_argument("--stream", action="store_true",
+                    help="sweep the corpus block by block (core/streaming.py)")
+    ap.add_argument("--block-docs", type=int, default=1024,
+                    help="documents a block (--stream)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory; a rerun resumes from it (--stream)")
+    ap.add_argument("--ckpt-every", type=int, default=1,
+                    help="iterations between boundary checkpoints (--stream)")
+    ap.add_argument("--ckpt-every-blocks", type=int, default=None,
+                    help="blocks between mid-iteration checkpoints (--stream)")
+    ap.add_argument("--z-store", default="ram", choices=("ram", "disk"),
+                    help="where z slabs live (--stream)")
+    ap.add_argument("--z-dir", default=None,
+                    help="root of the disk store's files; default --ckpt (--stream)")
+    ap.add_argument("--z-pack", default="auto", choices=("auto", "off"),
+                    help="pack z slabs to uint8/uint16 (--stream)")
+    ap.add_argument("--block-sparse-tables", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="tables only for the corpus's words (--stream)")
     return ap
 
 
@@ -115,7 +209,7 @@ def main(argv: list[str] | None = None) -> None:
         resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}") from None
-    train_hdp(args)
+    (train_hdp_streaming if args.stream else train_hdp)(args)
 
 
 if __name__ == "__main__":

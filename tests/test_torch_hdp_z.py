@@ -133,6 +133,56 @@ def test_sweep_table_mode_matches_reference(k, v, d, l, w):
     assert torch.equal(T(m_t), TH.doc_topic_counts(T(z_t), T(mask), k))
 
 
+def bf16_to_torch(x):
+    """A JAX bf16 array as a torch bf16 tensor, bit for bit."""
+    return torch.from_numpy(np.asarray(x).view(np.int16).copy()).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("k,v,d,l,w", SWEEP_SIZES[:3])
+def test_compact_sweep_bitwise_equals_reference_pallas(k, v, d, l, w):
+    """Compact tables (bf16 fpack, int16 ipack) built by the reference,
+    fed to JAX's Pallas kernel in interpret mode and to the port's
+    wrapper (its plain sweep on the CPU), with shared uniforms: z, m and
+    dn bitwise equal."""
+    phi, psi, tokens, mask, z0, u = problem(k * 5 + d, k, v, d, l)
+    jx = [jnp.asarray(a) for a in (tokens, mask, z0, u)]
+    qa, fp, ip = JZ.build_word_sparse_tables(jnp.asarray(phi), jnp.asarray(psi),
+                                             0.3, w, compact=True)
+    assert fp.dtype == jnp.bfloat16 and ip.dtype == jnp.int16
+    z_p, m_p, dn_p = (np.asarray(a) for a in JK.hdp_z_pallas(
+        *jx, qa, fp, ip, kk=k, interpret=True, emit_delta=True))
+    fpt, ipt = bf16_to_torch(fp), T(ip)
+    assert fpt.dtype == torch.bfloat16 and ipt.dtype == torch.int16
+    tt = [T(a) for a in (tokens, mask, z0, u)]
+    z_t, m_t, dn_t = (a.numpy() for a in hdp_z_cuda(
+        *tt, kk=k, q_a=T(qa), fpack=fpt, ipack=ipt, emit_delta=True))
+    np.testing.assert_array_equal(z_t, z_p)
+    np.testing.assert_array_equal(m_t, m_p)
+    np.testing.assert_array_equal(dn_t, dn_p)
+    assert ((z_t != z0) & mask).any()
+    # the widened tables give bitwise the same sweep
+    wide = hdp_z_cuda(*tt, kk=k, q_a=T(qa), fpack=fpt.float(), ipack=ipt.int(),
+                      emit_delta=True)
+    for a, b in zip((z_t, m_t, dn_t), wide):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_wrapper_takes_compact_tables_and_refuses_k_above_32768():
+    phi, psi, tokens, mask, z0, u = problem(6, 12, 30, 5, 16)
+    args = [T(a) for a in (tokens, mask, z0, u)]
+    q_a, fpack, ipack = TZ.build_word_sparse_tables(T(phi), T(psi), 0.3, 8,
+                                                    compact=True)
+    before = hdp_z_cuda.launches
+    got = hdp_z_cuda(*args, kk=12, q_a=q_a, fpack=fpack, ipack=ipack,
+                     emit_delta=True)
+    want = TR.hdp_z_ref(*args, q_a, fpack.float(), ipack.int(), kk=12,
+                        emit_delta=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert hdp_z_cuda.launches == before
+    with pytest.raises(ValueError, match="int16 topic ids: K=32769"):
+        hdp_z_cuda(*args, kk=2**15 + 1, q_a=q_a, fpack=fpack, ipack=ipack)
+
+
 # -- 6. prologue mode against the port's own table mode -----------------------
 
 @pytest.mark.parametrize("order", ["value", "topic"])

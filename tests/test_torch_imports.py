@@ -38,7 +38,29 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 41  # every module was reached
+    assert int(out.stdout.strip()) >= 51  # every module was reached
+
+
+STREAMING_MODULES = (
+    "repro_torch.data.zstore", "repro_torch.data.stream",
+    "repro_torch.train.checkpoint", "repro_torch.perf",
+    "repro_torch.core.sharded", "repro_torch.core.streaming",
+    "repro_torch.core.convert", "repro_torch.launch.train",
+)
+
+
+def test_streaming_modules_import_no_jax_and_no_repro():
+    """The block-streamed trainer's modules, alone in a fresh process."""
+    code = (
+        "import importlib, sys\n"
+        f"for n in {STREAMING_MODULES!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_sources_never_import_jax_or_repro():

@@ -23,7 +23,7 @@ from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref  # noqa: E402
 from repro.kernels.ssd.ssd import ssd_intra_chunk as jax_intra  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd, ssd_decode_step  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
-    ssd_chunked, ssd_intra_chunk_ref, ssd_ref)
+    decay_to_end, segsum, ssd_chunked, ssd_intra_chunk_ref, ssd_ref)
 from repro_torch.kernels.ssd.ssd import (  # noqa: E402
     check_operands, route, sm90_smem_bytes, ssd_intra_chunk)
 
@@ -156,8 +156,9 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 # operand v of its three products is split into hi, v rounded to tf32 as
 # cvt.rna.tf32.f32 rounds it, and lo = v - hi, of which the tensor core
 # reads all but the low 13 bits; a product is lo.hi + hi.lo + hi.hi
-# (summed here in float64). The scores are G * (2^((cum_i - cum_j) log2 e)
-# * dt_j), masked to 0 for j > i before the exp.
+# (summed here in float64). The scores are G * (2^(seg_ij log2 e) * dt_j),
+# masked to 0 for j > i before the exp, with seg built from 16-row
+# sub-blocks as the kernel builds it (``kernel_segsum``).
 
 LOG2E = 1.4426950408889634
 TF32_DROPPED = 0x1FFF  # the 13 low mantissa bits TF32 does not hold
@@ -189,11 +190,38 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor
     return out.float()
 
 
-def emulate_tensor_core_kernel(x, dt, a, bmat, cmat, *, chunk, cum=None, passes=3):
-    """The kernel's arithmetic on the CPU: cum the sequential float32 sum
-    (or ``cum`` (B, NC, H, CL) as given), then G, y and st in three TF32
-    passes (or ``passes``) with the masked in-register scaling. Returns
-    (y, st, dec) as ``ssd_intra_chunk``."""
+def kernel_segsum(steps: torch.Tensor) -> torch.Tensor:
+    """seg (..., CL, CL) of float32 ``steps`` (..., CL) as the kernel
+    builds it: the chunk padded to 16-row sub-blocks; for j in block J
+    below i's block I, (sfx_j + mid_JI) + pre_i, with pre the sums from
+    a block's first row, sfx the sums from j + 1 to a block's last row
+    and mid_JI the totals of the blocks between, each summed in order;
+    within a diagonal block the masked cumsum of ``ref.segsum``."""
+    cl = steps.shape[-1]
+    clp = -(-cl // 16) * 16
+    a = torch.cat([steps, steps.new_zeros(steps.shape[:-1] + (clp - cl,))], -1)
+    nb = clp // 16
+    blocks = a.reshape(a.shape[:-1] + (nb, 16))
+    pre = torch.cumsum(blocks, -1)
+    sfx = decay_to_end(blocks, blocks.dim() - 1)
+    seg = a.new_full(a.shape + (clp,), float("-inf"))
+    for bi in range(nb):
+        ri = slice(16 * bi, 16 * bi + 16)
+        seg[..., ri, ri] = segsum(blocks[..., bi, :], blocks.dim() - 2)
+        mid = torch.zeros_like(pre[..., 0, 0])
+        for bj in range(bi - 1, -1, -1):
+            rj = slice(16 * bj, 16 * bj + 16)
+            seg[..., ri, rj] = ((sfx[..., bj, None, :] + mid[..., None, None])
+                                + pre[..., bi, :, None])
+            mid = mid + pre[..., bj, -1]
+    return seg[..., :cl, :cl]
+
+
+def emulate_tensor_core_kernel(x, dt, a, bmat, cmat, *, chunk, passes=3):
+    """The kernel's arithmetic on the CPU: cum and the decays to the end
+    sequential float32 sums, seg as ``kernel_segsum``, then G, y and st in
+    three TF32 passes (or ``passes``) with the masked in-register
+    scaling. Returns (y, st, dec) as ``ssd_intra_chunk``."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     nc, cl = s // chunk, chunk
@@ -201,24 +229,53 @@ def emulate_tensor_core_kernel(x, dt, a, bmat, cmat, *, chunk, cum=None, passes=
     dtr = dt.reshape(b, nc, cl, h).permute(0, 1, 3, 2)
     br = bmat.reshape(b, nc, cl, h, n).permute(0, 1, 3, 2, 4)
     cr = cmat.reshape(b, nc, cl, h, n).permute(0, 1, 3, 2, 4)
-    if cum is None:
-        steps = dtr * a[None, None, :, None]
-        cum = torch.empty_like(steps)
-        run = torch.zeros_like(steps[..., 0])
-        for i in range(cl):
-            run = run + steps[..., i]
-            cum[..., i] = run
+    steps = dtr * a[None, None, :, None]
     g = mm_3xtf32(cr, br.transpose(-1, -2), passes)
-    ii = torch.arange(cl)
-    below = ii[:, None] >= ii[None, :]
-    expo = torch.where(below, (cum[..., :, None] - cum[..., None, :]) * LOG2E,
-                       torch.tensor(float("-inf")))
-    scores = g * (torch.exp2(expo) * dtr[..., None, :])
+    scores = g * (torch.exp2(kernel_segsum(steps) * LOG2E) * dtr[..., None, :])
     y = mm_3xtf32(scores, xr, passes)
-    wdt = torch.exp(cum[..., -1:] - cum) * dtr
+    wdt = torch.exp(decay_to_end(steps, 3)) * dtr
     st = mm_3xtf32((br * wdt[..., None]).transpose(-1, -2), xr, passes)
     return (y.permute(0, 1, 3, 2, 4).reshape(b, s, h, p), st,
-            torch.exp(cum).permute(0, 1, 3, 2).reshape(b, s, h))
+            torch.exp(torch.cumsum(steps, 3)).permute(0, 1, 3, 2).reshape(b, s, h))
+
+
+def oracle_intra_chunk(x, dt, a, bmat, cmat, *, chunk):
+    """The intra-chunk pass in float64 from the float32 inputs, its
+    decays from float64 segment sums of the exact products dt * A."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    nc, cl = s // chunk, chunk
+    xr = x.double().reshape(b, nc, cl, h, p)
+    dtr = dt.double().reshape(b, nc, cl, h)
+    br = bmat.double().reshape(b, nc, cl, h, n)
+    cr = cmat.double().reshape(b, nc, cl, h, n)
+    steps = dtr * a.double()
+    cum = torch.cumsum(steps, 2)
+    ldec = torch.exp(segsum(steps, 2))
+    xdt = xr * dtr[..., None]
+    scores = torch.einsum("bcihn,bcjhn->bcijh", cr, br) * ldec
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xdt)
+    wend = torch.exp(decay_to_end(steps, 2))
+    st = torch.einsum("bcjhn,bcjhp->bchnp", br * wend[..., None], xdt)
+    return y.reshape(b, s, h, p), st, torch.exp(cum).reshape(b, s, h)
+
+
+def models_dt_and_a(heads=None, seed=23):
+    """x, dt, a, B, C (numpy, float32) at the serving width with dt and
+    A as the model at init feeds them (dt = softplus(normal), A =
+    -linspace(1, 16, 50)): B=1, S=256, P=64, N=16, B and C shared by the
+    heads; cum reaches about -1900 within a chunk of 128."""
+    rng = np.random.default_rng(seed)
+    b, s, p, n = 1, 256, 64, 16
+    a = -np.linspace(1.0, 16.0, 50).astype(np.float32)
+    if heads is not None:
+        a = a[heads]
+    h = len(a)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
+    b1, c1 = (rng.standard_normal((b, s, 1, n)).astype(np.float32) for _ in range(2))
+    bm, cm = (np.ascontiguousarray(np.broadcast_to(t, (b, s, h, n))) for t in (b1, c1))
+    return x, dt, a, bm, cm
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SHAPES)
@@ -232,57 +289,82 @@ def test_tensor_core_arithmetic_matches_reference_kernel(b, s, h, p, n, chunk):
 def test_tensor_core_arithmetic_on_the_models_dt_and_a():
     """A few heads of the serving shape (P=64, N=16, chunk 128) with dt
     and A as the model at init feeds them: cum reaches about -1900
-    within a chunk. There cum_i - cum_j cancels, so y moves by up to
-    ~3e-4 between float32 cumsum orders (JAX's associative scan against
-    a sequential sum): the kernel follows the order of the port's plain
-    version on the card, a sequential float32 sum, and chip_smoke.py
-    holds it to that version there. Here the products and the scaling are
-    held to JAX on JAX's own cum."""
-    rng = np.random.default_rng(23)
-    b, s, p, n, chunk = 1, 256, 64, 16, 128
-    heads = np.array([0, 16, 33, 49])
-    a = (-np.linspace(1.0, 16.0, 50)[heads]).astype(np.float32)
-    h = len(heads)
-    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
-    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
-    b1, c1 = (rng.standard_normal((b, s, 1, n)).astype(np.float32) for _ in range(2))
-    bm, cm = (np.ascontiguousarray(np.broadcast_to(t, (b, s, h, n))) for t in (b1, c1))
-    arrs = (x, dt, a, bm, cm)
-    want = jax_intra(*(jnp.asarray(t) for t in arrs), chunk=chunk, interpret=True)
-    steps = jnp.asarray(dt.reshape(b, s // chunk, chunk, h) * a)
-    cum = torch.from_numpy(np.array(jnp.cumsum(steps, axis=2))).permute(0, 1, 3, 2)
-    got = emulate_tensor_core_kernel(*(torch.from_numpy(t) for t in arrs),
-                                     chunk=chunk, cum=cum)
-    assert float(np.abs(np.asarray(want[0])).max()) > 20.0
-    for g, w in zip(got, want):
-        close(g, w)
+    within a chunk. The kernel's arithmetic (seg from 16-row sub-blocks,
+    three TF32 passes) is held to the float64 oracle and to the plain
+    version at the unchanged atol."""
+    arrs = models_dt_and_a(heads=[0, 16, 33, 49])
+    tx = [torch.from_numpy(t) for t in arrs]
+    chunk = 128
+    oracle = oracle_intra_chunk(*tx, chunk=chunk)
+    got = emulate_tensor_core_kernel(*tx, chunk=chunk)
+    plain = ssd_intra_chunk_ref(*tx, chunk=chunk)
+    assert float(oracle[0].abs().max()) > 20.0
+    for g, w, pl in zip(got, oracle, plain):
+        close(g, w.numpy())
+        close(g, pl.numpy())
 
 
 def test_cumsum_order_moves_y_on_the_models_dt_and_a():
-    """Why the kernel keeps the plain version's cum order: on the model's
-    inputs cum passes -1000 within a chunk, and the same arithmetic on
-    a sequential float32 cum and on JAX's cum differs by several times
-    what the three TF32 passes cost, near the tolerance itself."""
-    rng = np.random.default_rng(23)
-    b, s, p, n, chunk = 1, 256, 64, 16, 128
-    a = (-np.linspace(1.0, 16.0, 50)[[0, 16, 33, 49]]).astype(np.float32)
-    h = len(a)
-    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
-    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
-    b1, c1 = (rng.standard_normal((b, s, 1, n)).astype(np.float32) for _ in range(2))
-    bm, cm = (np.ascontiguousarray(np.broadcast_to(t, (b, s, h, n))) for t in (b1, c1))
-    arrs = (x, dt, a, bm, cm)
-    want = torch.from_numpy(np.array(
-        jax_intra(*(jnp.asarray(t) for t in arrs), chunk=chunk, interpret=True)[0]))
-    steps = jnp.asarray(dt.reshape(b, s // chunk, chunk, h) * a)
-    cum = torch.from_numpy(np.array(jnp.cumsum(steps, axis=2))).permute(0, 1, 3, 2)
-    assert float(cum.min()) < -1000.0
+    """Why the decays come from segment sums: on the model's inputs cum
+    passes -1000 within a chunk, and with L = exp(cum_i - cum_j) two
+    float32 cumsum orders (sequential, JAX's) move y by more than half
+    the tolerance. With segment sums, two orders (the kernel's
+    sub-blocks, the plain version's columns) move it by a small fraction
+    of the three TF32 passes' own error."""
+    arrs = models_dt_and_a(heads=[0, 16, 33, 49])
+    x, dt, a, bm, cm = (torch.from_numpy(t) for t in arrs)
+    b, s, h, _ = x.shape
+    chunk = 128
+    steps = (dt.reshape(b, s // chunk, chunk, h) * a).permute(0, 1, 3, 2)
+    cum_jax = torch.from_numpy(np.array(jnp.cumsum(
+        jnp.asarray(steps.numpy()), axis=3)))
+    cum_seq = torch.cumsum(steps, 3)
+    assert float(cum_seq.min()) < -1000.0
+    ii = torch.arange(chunk)
+    tri = ii[:, None] >= ii[None, :]
+
+    def ldec(seg):
+        return torch.exp(torch.where(tri, seg, float("-inf"))).double()
+
+    def diff(c):
+        return c[..., :, None] - c[..., None, :]
+
+    xdt = (x * dt[..., None]).double().reshape(b, s // chunk, chunk, h, -1)
+    g = torch.einsum("bcihn,bcjhn->bchij",
+                     *(t.double().reshape(b, s // chunk, chunk, h, -1) for t in (cm, bm)))
+
+    def y_of(seg):
+        return torch.einsum("bchij,bcjhp->bcihp", g * ldec(seg), xdt)
+
+    cancelling = float((y_of(diff(cum_seq)) - y_of(diff(cum_jax))).abs().max())
+    by_segments = float((y_of(kernel_segsum(steps))
+                         - y_of(segsum(steps, 3))).abs().max())
+    passes = float((emulate_tensor_core_kernel(x, dt, a, bm, cm, chunk=chunk)[0]
+                    - oracle_intra_chunk(x, dt, a, bm, cm, chunk=chunk)[0]).abs().max())
+    print(f"y moved by the cum order {cancelling:.3g}, by the segment-sum order "
+          f"{by_segments:.3g}; three TF32 passes against the oracle {passes:.3g}")
+    assert cancelling > ATOL / 2
+    assert by_segments < passes / 5 and by_segments < ATOL / 20
+
+
+def test_plain_version_meets_the_oracle_on_the_models_dt_and_a():
+    """All 50 of hymba's heads at the serving width, the model's dt and
+    A: the plain version's y, st and dec stay within atol of the float64
+    oracle. JAX's kernel, which takes L = exp(cum_i - cum_j), is printed
+    beside it: it misses atol on these inputs (a fault of the reference,
+    which stays as it is)."""
+    arrs = models_dt_and_a()
     tx = [torch.from_numpy(t) for t in arrs]
-    y_seq = emulate_tensor_core_kernel(*tx, chunk=chunk)[0]
-    y_jax = emulate_tensor_core_kernel(*tx, chunk=chunk, cum=cum)[0]
-    order = float((y_seq - y_jax).abs().max())
-    passes = float((y_jax - want).abs().max())
-    assert order > 5 * passes and order > ATOL / 2
+    oracle = oracle_intra_chunk(*tx, chunk=128)
+    got = ssd_intra_chunk(*tx, chunk=128)
+    errs = [float((g.double() - w).abs().max()) for g, w in zip(got, oracle)]
+    want = jax_intra(*(jnp.asarray(t) for t in arrs), chunk=128, interpret=True)
+    jax_err = float((torch.from_numpy(np.array(want[0])).double() - oracle[0]).abs().max())
+    print(f"max |y - oracle|: plain {errs[0]:.3g}, JAX {jax_err:.3g} "
+          f"(|y| up to {float(oracle[0].abs().max()):.1f}); st {errs[1]:.3g}, "
+          f"dec {errs[2]:.3g}")
+    assert float(oracle[0].abs().max()) > 50.0
+    assert max(errs) <= ATOL
 
 
 def test_one_tf32_pass_would_miss_the_tolerance():
@@ -341,12 +423,13 @@ def test_route_by_shape(chunk, n, p, want):
 
 
 def test_every_tensor_core_shape_fits_a_block():
-    """The wrapper's count of the kernel's shared memory: 112,640 B at the
-    serving shape (two CTAs an SM), at most 145,408 B, below an H100
-    block's 232,448."""
-    assert sm90_smem_bytes(128, 16, 64) == 112_640
+    """The wrapper's count of the kernel's shared memory: 115,584 B at the
+    serving shape, so two CTAs share an H100 SM (233,472 B, 1,024 B of it
+    reserved a CTA), at most 148,352 B, below an H100 block's 232,448."""
+    assert sm90_smem_bytes(128, 16, 64) == 115_584
+    assert 2 * (sm90_smem_bytes(128, 16, 64) + 1024) <= 233_472
     assert max(sm90_smem_bytes(c, n, p) for c in range(1, 129)
-               for n in range(4, 33, 4) for p in range(4, 65, 4)) == 145_408
+               for n in range(4, 33, 4) for p in range(4, 65, 4)) == 148_352
 
 
 def _serving_operands():
