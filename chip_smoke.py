@@ -93,9 +93,15 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      stream is bitwise the monolithic chain over 2 iterations; (b) 11
      blocks of 8,192 documents (the last padded), 2 iterations with the
      ram and the disk store, bitwise equal, n the recount of z, z in
-     [0, K); (c) iteration 2 stopped after 5 blocks at a checkpoint,
-     restored and finished, bitwise (b); (d) block-sparse tables (table
-     mode) bitwise the default (prologue mode); (e) every sweep on the
+     [0, K), and iteration 2's sweeps of the first block and of the
+     padded last one (79 of 8,192 documents live), staged as the driver
+     stages them, bitwise the plain version and the stream's z; (c)
+     iteration 2 stopped after 5 blocks at a checkpoint, restored and
+     finished, bitwise (b); (d) block-sparse tables (table mode) bitwise
+     the default (prologue mode), on the whole corpus and on its first
+     1,000 documents (4 blocks of 256), which miss words, so that some
+     table rows are zero, with that store's first and last sweeps
+     against the plain version as in (b); (e) every sweep on the
      lanes route, the sweep counts zeroed just before (b) and read just
      after; (f) one iteration streamed and monolithic on the corpus
      tiled 10x by documents (819,990 documents): s/iter, peak device
@@ -129,6 +135,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import hdp as H  # noqa: E402
+from repro_torch.core import sharded as SH  # noqa: E402
 from repro_torch.core.polya_urn import ppu_sample  # noqa: E402
 from repro_torch.core.streaming import StreamingHDP  # noqa: E402
 from repro_torch.data.corpus import Corpus  # noqa: E402
@@ -177,6 +184,10 @@ CONSISTENCY_ATOL = 1e-3
 # corpus is tiled by documents for the memory comparison
 STREAM_BLOCK_DOCS = 8192
 STREAM_TILES = 10
+# phase 8 (d) again on the first documents, which miss about 8% of the
+# words (PubMed 0.01), in 4 blocks, the last padded
+STREAM_PART_DOCS = 1000
+STREAM_PART_BLOCK_DOCS = 256
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -557,6 +568,48 @@ def check_streams_equal(a, b, tag: str) -> None:
           f"{tag}: z differs")
 
 
+def check_block_sweeps(sh: StreamingHDP, state, z_next: np.ndarray, tag: str) -> None:
+    """The sweep at the streamed path's own shapes against its plain
+    version. From ``state`` (after an iteration) the next iteration's
+    tables and every block's uniforms are redrawn on a copy of its
+    generator, in the driver's order; the first block and the padded
+    last one are staged as the driver stages them, swept through
+    ``z_sweep_u`` (the kernel) and through the plain version, and z, m
+    and dn must agree bitwise. ``z_next``, the stream's z slabs after
+    that iteration, must equal the kernel's z: these are the main
+    path's inputs. Returns the tables."""
+    cfg = sh.cfg
+    gen = torch.Generator(device=sh.device)
+    gen.set_state(state.gen.get_state())
+    _, _, ztables = sh._phi_tables(gen, state.n, state.varphi, state.psi)
+    plain = hdp_z_ref_prologue if sh.in_kernel else hdp_z_ref
+    last = sh.store.num_blocks - 1
+    for b in range(sh.store.num_blocks):
+        u = sh._uniforms(gen)
+        if b not in (0, last):
+            continue
+        _, tokens, mask, z = sh._take(sh._to_device(
+            sh._host_z(sh._host_block(b), state.z_blocks)))
+        lanes = hdp_z_cuda.launches_by_route["lanes"]
+        got = SH.z_sweep_u(cfg, ztables, z, tokens, mask, state.psi, u,
+                           in_kernel=sh.in_kernel)
+        want = plain(tokens, mask, z, u, *ztables, kk=cfg.K, emit_delta=True)
+        torch.cuda.synchronize()
+        where = f"{tag} block {b} of {sh.store.num_blocks}"
+        check(hdp_z_cuda.launches_by_route["lanes"] == lanes + 1,
+              f"{where}: the sweep was not launched on the lanes route")
+        for name, a, w in zip(("z", "m", "dn"), got, want):
+            check(torch.equal(a, w), f"{where}: {name} differs from the plain "
+                                     f"version (max {max_int_err(a, w)})")
+        check(np.array_equal(got[0].cpu().numpy(), z_next[b]),
+              f"{where}: the kernel's z is not the stream's")
+        print(f"[8] {tag} block {b} ({int(mask.any(1).sum())} of {mask.shape[0]} "
+              f"documents live, {'prologue' if sh.in_kernel else 'table'} mode): "
+              f"kernel == {plain.__name__} bitwise (z, m, dn) == the stream's z",
+              flush=True)
+    return ztables
+
+
 def streamed_chain(stream: StreamingHDP, iters: int, seed: int):
     state = stream.init_state(seed)
     for _ in range(iters):
@@ -570,9 +623,11 @@ def stream_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int)
     stream is bitwise the monolithic chain over 2 iterations; (b) 11
     blocks of 8,192 documents (the last padded), 2 iterations with the ram
     and with the disk store, bitwise equal, n the recount of z, z in [0,
-    K); (c) iteration 2 stopped after 5 blocks at a checkpoint, restored
-    and finished, bitwise (b); (d) block-sparse tables (table mode)
-    bitwise the default (prologue mode); (e) every sweep on the lanes
+    K), the first and the padded last sweep of iteration 2 bitwise the
+    plain version; (c) iteration 2 stopped after 5 blocks at a
+    checkpoint, restored and finished, bitwise (b); (d) block-sparse
+    tables (table mode) bitwise the default (prologue mode), also on a
+    part of the corpus that misses words; (e) every sweep on the lanes
     route; (f) one iteration streamed and monolithic on the corpus tiled
     10x by documents: s/iter, peak device memory, and the streamed
     iteration's phase split. Returns the numbers for the kernels line."""
@@ -642,9 +697,12 @@ def stream_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int)
           f"count_n(z), z in [0, K); sweeps {out['launches']} "
           f"(by route {out['launches_by_route']})", flush=True)
 
+    # (b) the sweeps of iteration 2 at (b)'s block shapes, first and padded
+    st_c = ram.iteration(ram.init_state(seed))
+    check_block_sweeps(ram, st_c, z_all, "(b)")
+
     # (c) stopped mid-iteration at a checkpoint, restored, finished
     with tempfile.TemporaryDirectory() as d:
-        st_c = ram.iteration(ram.init_state(seed))
         check(ram.iteration(st_c, ckpt_dir=d, stop_after_blocks=5) is None,
               "the stopped iteration returned a state")
         st_c, kw = ram.restore(d)
@@ -663,7 +721,28 @@ def stream_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int)
     check_streams_equal(st_ram, streamed_chain(on, 2, seed), "block-sparse on")
     print(f"[8] (d) block_sparse_tables on (table mode, {len(store.vocab_ids())} of "
           f"{cfg.V} words) == off (prologue mode), bitwise", flush=True)
-    del st_ram, st_disk, st_c, ram, on
+    # ... and on the first documents, which miss words, so that the masked
+    # build zeroes rows the card then holds
+    part = Corpus(corpus.tokens[:STREAM_PART_DOCS], corpus.mask[:STREAM_PART_DOCS],
+                  corpus.V)
+    part_store = ShardedCorpusStore.from_corpus(part, STREAM_PART_BLOCK_DOCS)
+    words = len(part_store.vocab_ids())
+    check(words < cfg.V, f"the first {STREAM_PART_DOCS} documents hold every word")
+    on_part = StreamingHDP(cfg._replace(alias_in_kernel="off"), part_store, device=dev,
+                           block_sparse_tables="on")
+    st_off = streamed_chain(StreamingHDP(cfg, part_store, device=dev), 2, seed)
+    st_on = streamed_chain(on_part, 1, seed)
+    _, fpack, _ = check_block_sweeps(on_part, st_on, st_off.z_blocks.materialize(), "(d)")
+    absent = ~on_part._u_mask
+    zeroed = int(absent.sum())
+    check(zeroed == cfg.V - words and not fpack[absent].any() and fpack[~absent].any(),
+          "block-sparse tables: the rows of absent words are not zero")
+    check_streams_equal(st_off, on_part.iteration(st_on), "block-sparse on, part of the corpus")
+    print(f"[8] (d) on the first {STREAM_PART_DOCS} documents ({part_store.num_blocks} "
+          f"blocks of {STREAM_PART_BLOCK_DOCS}, {words} of {cfg.V} words, {zeroed} table "
+          f"rows zero): block_sparse_tables on == off (prologue mode), bitwise over 2 "
+          f"iterations", flush=True)
+    del st_ram, st_disk, st_c, ram, on, on_part, st_on, st_off
     torch.cuda.empty_cache()
 
     # (e) every sweep of the phase on the lanes route ((a) checked its own)

@@ -8,13 +8,15 @@ the port's state gets a fresh ``torch.Generator`` from ``seed``.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import TYPE_CHECKING, Any, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.hdp import HDPState, make_generator
-from repro_torch.core.streaming import StreamingHDP, StreamingState
+
+if TYPE_CHECKING:  # the streaming driver sits above this module
+    from repro_torch.core.streaming import StreamingHDP, StreamingState
 
 _DTYPES = {"z": torch.int32, "n": torch.int32, "phi": torch.float32,
            "varphi": torch.int32, "psi": torch.float32, "l": torch.int32}
@@ -55,6 +57,8 @@ def streaming_state_from_numpy(
     anything ``np.asarray`` takes, such as a reference ``ZSlabStore``),
     written into a new slab store of ``stream``'s kind. Arrays are
     copied."""
+    from repro_torch.core.streaming import StreamingState
+
     get = (arrays.__getitem__ if isinstance(arrays, Mapping)
            else lambda k: getattr(arrays, k))
     dev = stream.device

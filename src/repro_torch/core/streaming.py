@@ -18,10 +18,12 @@ each Gibbs iteration:
 
 Per block the pipeline overlaps four stages:
 
-    disk  read z slab b+2     (BlockPrefetcher's pre thread; disk store)
-    H2D   stage block b+1     (its stage thread: pinned host buffers,
-                               copied on a side CUDA stream, an event
-                               recorded after the copy)
+    read  block b+2           (BlockPrefetcher's pre thread: its rows
+                               and z slab, the slab from disk for the
+                               disk store, into a pinned host buffer)
+    H2D   stage block b+1     (its stage thread: the buffer copied on a
+                               side CUDA stream, an event recorded
+                               after the copy)
     sweep block b             (the driver thread queues it on the
                                current stream, after waiting on b's event)
     D2H   write back b-1      (BlockWriteback's thread: a side stream
@@ -88,14 +90,16 @@ class StreamingState(NamedTuple):
     z_blocks: ZSlabStore   # (B, DB, L) slabs behind the store API
 
 
-class _Pinned:
-    """One set of pinned host buffers for a block's copy to the card, and
-    the event recorded after its last copy."""
+class _HostBlock:
+    """A block's tokens, mask and (packed) z on the host, ready for the
+    copy to the device: on the card's path one of a ring of pinned
+    buffers, with the event recorded after its last copy."""
 
-    def __init__(self, shape, zdtype):
-        self.tokens = torch.empty(shape, dtype=torch.int32, pin_memory=True)
-        self.mask = torch.empty(shape, dtype=torch.bool, pin_memory=True)
-        self.z = torch.empty(shape, dtype=zdtype, pin_memory=True)
+    def __init__(self, shape, zdtype, pin: bool):
+        self.tokens = torch.empty(shape, dtype=torch.int32, pin_memory=pin)
+        self.mask = torch.empty(shape, dtype=torch.bool, pin_memory=pin)
+        self.z = torch.empty(shape, dtype=zdtype, pin_memory=pin)
+        self.index = -1
         self.event: Optional[torch.cuda.Event] = None
 
 
@@ -158,7 +162,7 @@ class StreamingHDP:
         if self._cuda:
             self._h2d_stream = torch.cuda.Stream(self.device)
             self._d2h_stream = torch.cuda.Stream(self.device)
-            self._pinned: list[_Pinned] = []
+            self._pinned: list[_HostBlock] = []
             self._next_pinned = 0
         # checkpoint stores of save dirs that are not a disk slab store's home
         self._zstores: dict[str, ZBlockStore] = {}
@@ -209,30 +213,51 @@ class StreamingHDP:
             gen=gen, it=0, z_blocks=self._make_slab_store())
 
     # -- the copies to and from the card --------------------------------------
-    def _to_device(self, blk, z: np.ndarray):
-        """A block and its (packed) z slab on the device: ``(b, tokens,
-        mask, z_wire, event)``, the event recorded after the copy on the
-        side stream (None on the CPU). Runs on the stage thread."""
-        zw = np.asarray(z).view(self._np_wire)
+    def _host_block(self, b: int) -> _HostBlock:
+        """Block b's tokens and mask in a host buffer, straight from the
+        store (the padded rows zeroed): on the card's path the next pinned
+        buffer of the ring, once its last copy's event has completed; on
+        the CPU a new one. Runs on the prefetcher's pre thread."""
+        shape = (self.store.block_docs, self.store.max_len)
         if not self._cuda:
-            return (blk.index, torch.from_numpy(blk.tokens),
-                    torch.from_numpy(blk.mask), torch.from_numpy(zw.copy()), None)
-        with torch.cuda.device(self.device):
+            host = _HostBlock(shape, self._wire, pin=False)
+        else:
+            # at most prefetch_depth blocks are between this thread and the
+            # sweep, so the buffer's last block has had its copy queued
             if len(self._pinned) < self.prefetch_depth + 2:
-                self._pinned.append(_Pinned(blk.tokens.shape, self._wire))
-            buf = self._pinned[self._next_pinned % len(self._pinned)]
+                with torch.cuda.device(self.device):
+                    self._pinned.append(_HostBlock(shape, self._wire, pin=True))
+            host = self._pinned[self._next_pinned % len(self._pinned)]
             self._next_pinned += 1
-            if buf.event is not None:
-                buf.event.synchronize()  # its last copy has left the buffer
-            buf.tokens.numpy()[...] = blk.tokens
-            buf.mask.numpy()[...] = blk.mask
-            buf.z.numpy()[...] = zw
-            with torch.cuda.stream(self._h2d_stream):
-                out = tuple(t.to(self.device, non_blocking=True)
-                            for t in (buf.tokens, buf.mask, buf.z))
-                buf.event = torch.cuda.Event()
-                buf.event.record(self._h2d_stream)
-        return (blk.index, *out, buf.event)
+            if host.event is not None:
+                host.event.synchronize()  # its last copy has left the buffer
+        self.store.fill(b, host.tokens.numpy(), host.mask.numpy())
+        host.index = b
+        return host
+
+    def _host_z(self, host: _HostBlock, z_store: ZSlabStore) -> _HostBlock:
+        """Copy the block's z slab into ``host`` (as the wire dtype) and
+        check the slab back in."""
+        z = z_store.read(host.index)
+        try:
+            host.z.numpy()[...] = np.asarray(z).view(self._np_wire)
+        finally:
+            z_store.release(host.index)
+        return host
+
+    def _to_device(self, host: _HostBlock):
+        """The block on the device: ``(b, tokens, mask, z_wire, event)``,
+        the event recorded after the copy on the side stream (None on the
+        CPU, where the host's tensors are the block). Runs on the stage
+        thread."""
+        if not self._cuda:
+            return (host.index, host.tokens, host.mask, host.z, None)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._h2d_stream):
+            out = tuple(t.to(self.device, non_blocking=True)
+                        for t in (host.tokens, host.mask, host.z))
+            host.event = torch.cuda.Event()
+            host.event.record(self._h2d_stream)
+        return (host.index, *out, host.event)
 
     def _take(self, item):
         """On the driver thread: wait (on the card) for a staged block's
@@ -276,27 +301,16 @@ class StreamingHDP:
 
     def _staged_blocks(self, z_store: ZSlabStore, start: int):
         """The two-stage prefetch pipeline from block ``start``: the pre
-        stage checks the block's z slab out of the store (a disk read for
-        the disk store, a view for RAM), the stage thread copies block and
-        slab to the card and checks the slab back in. The two share a
-        budget of ``prefetch_depth`` slabs in flight."""
+        stage fills a host buffer with the block and its z slab (a disk
+        read for the disk store) and checks the slab back in; the stage
+        thread queues the buffer's copy to the card. The two share a
+        budget of ``prefetch_depth`` blocks in flight."""
 
-        def read_z(blk):
-            return blk, z_store.read(blk.index)
+        def read(b):
+            return self._host_z(self._host_block(b), z_store)
 
-        def stage(item):
-            blk, z = item
-            out = self._to_device(blk, z)
-            z_store.release(blk.index)  # the slab's bytes are copied now
-            return out
-
-        def drop(item):
-            # slabs read ahead and dropped on an early exit (a stop, a
-            # kill, an error) check back in, or the resident count leaks
-            z_store.release(item[0].index)
-
-        return BlockPrefetcher(self.store.blocks(start), stage,
-                               depth=self.prefetch_depth, pre=read_z, drop=drop)
+        return BlockPrefetcher(range(start, self.store.num_blocks), self._to_device,
+                               depth=self.prefetch_depth, pre=read)
 
     def _uniforms(self, gen):
         shape = (self.store.block_docs, self.store.max_len, 3)
@@ -390,7 +404,8 @@ class StreamingHDP:
         """One Gibbs iteration, bitwise ``iteration()``, with its wall time
         split by phase: serialized (no prefetch or write-back threads) and
         the card synchronized at every phase boundary (``PhaseTimers``), so
-        each span holds one phase: tables.build, corpus_read, z_read, h2d,
+        each span holds one phase: tables.build, corpus_read (the block
+        into its host buffer), z_read (its slab too), h2d,
         sweep (the block's uniforms and its z-step), merge (n += dn,
         dh), writeback (narrow, D2H and the store's write) and tail (l
         and Psi). Use ``iteration()`` for throughput: the overlap is the
@@ -402,20 +417,13 @@ class StreamingHDP:
                                                     state.psi)
         n_run, dh_acc = state.n, self._zero_dh()
         z_store = state.z_blocks
-        blocks = self.store.blocks()
-        while True:
+        for b in range(self.store.num_blocks):
             with timers.phase("corpus_read"):
-                blk = next(blocks, None)
-            if blk is None:
-                break
+                host = self._host_block(b)
             with timers.phase("z_read"):
-                z_host = z_store.read(blk.index)
+                self._host_z(host, z_store)
             with timers.phase("h2d"):
-                try:
-                    item = self._to_device(blk, z_host)
-                finally:
-                    z_store.release(blk.index)
-                b, tokens_b, mask_b, z_old = self._take(item)
+                _, tokens_b, mask_b, z_old = self._take(self._to_device(host))
             with timers.phase("sweep"):
                 u = self._uniforms(gen)
                 z_b, m, dn = SH.z_sweep_u(cfg, ztables, z_old, tokens_b, mask_b,

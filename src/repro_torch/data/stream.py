@@ -6,8 +6,9 @@ Gibbs iteration (counterpart of ``repro/data/stream.py``).
     rows whose mask is all False. Blocks live in RAM or in an
     ``np.memmap`` on disk (``save``/``open``).
   * ``BlockPrefetcher`` stages block b+1 (a daemon thread) while block b
-    is swept, with an optional ``pre`` stage on its own thread (the z-slab
-    read of data/zstore.py) under one shared in-flight budget.
+    is swept, with an optional ``pre`` stage on its own thread (the
+    driver's read of a block and its z slab) under one shared in-flight
+    budget.
   * ``AsyncStage``/``BlockWriteback`` write swept blocks back on a daemon
     thread, so the driver never waits for a sweep it has queued.
 
@@ -95,16 +96,25 @@ class ShardedCorpusStore:
         """Fraction of the vocabulary present in the corpus (<= 1.0)."""
         return len(self.vocab_ids()) / max(self.V, 1)
 
-    def block(self, b: int) -> CorpusBlock:
+    def fill(self, b: int, tokens: np.ndarray, mask: np.ndarray) -> None:
+        """Write block b into the (DB, L) arrays ``tokens`` and ``mask``:
+        its rows copied once from the store, the padded rows zeroed. The
+        streaming driver fills its pinned buffers with it."""
         if not 0 <= b < self.num_blocks:
             raise IndexError(f"block {b} out of range [0, {self.num_blocks})")
         lo = b * self.block_docs
-        hi = min(lo + self.block_docs, self.num_docs)
-        tokens = np.zeros((self.block_docs, self.max_len), np.int32)
-        mask = np.zeros((self.block_docs, self.max_len), bool)
-        tokens[: hi - lo] = self.tokens[lo:hi]
-        mask[: hi - lo] = self.mask[lo:hi]
-        return CorpusBlock(index=b, tokens=tokens, mask=mask, doc_start=lo)
+        live = min(lo + self.block_docs, self.num_docs) - lo
+        tokens[:live] = self.tokens[lo:lo + live]
+        mask[:live] = self.mask[lo:lo + live]
+        tokens[live:] = 0
+        mask[live:] = False
+
+    def block(self, b: int) -> CorpusBlock:
+        tokens = np.empty((self.block_docs, self.max_len), np.int32)
+        mask = np.empty((self.block_docs, self.max_len), bool)
+        self.fill(b, tokens, mask)
+        return CorpusBlock(index=b, tokens=tokens, mask=mask,
+                           doc_start=b * self.block_docs)
 
     def blocks(self, start: int = 0) -> Iterator[CorpusBlock]:
         for b in range(start, self.num_blocks):
@@ -233,30 +243,28 @@ class BlockPrefetcher:
     Gibbs sweep of block b.
 
     ``pre`` adds a second pipeline stage on its own daemon thread,
-    upstream of ``stage`` — the streaming driver's disk->host z-slab
-    read (``DiskZStore.read``), so a disk load of block b+2 overlaps the
-    H2D staging of block b+1 AND the sweep of block b. The two stages
-    share ONE in-flight budget of ``depth`` items, enforced by a
-    semaphore held from ``pre`` start until the consumer takes the
-    staged item: at most ``depth`` slabs are ever between read-start and
-    consumption, which is what bounds the out-of-core backend's resident
-    slab count (see data/zstore.py). ``drop`` (pre mode only) is called
-    on items discarded after ``pre`` but before a successful ``stage``
-    (early close, stage error) so ``pre``'s side effects can be undone —
-    the streaming driver releases the slab checkout there.
+    upstream of ``stage`` — the streaming driver's read of a block and
+    its z slab into a host buffer (a disk load for ``DiskZStore``), so
+    the read of block b+2 overlaps the H2D staging of block b+1 AND the
+    sweep of block b. The two stages share ONE in-flight budget of
+    ``depth`` items, enforced by a semaphore held from ``pre`` start
+    until the consumer takes the staged item: at most ``depth`` items
+    are ever between read-start and consumption, which is what bounds
+    the driver's host buffers in use. Items dropped after ``pre`` (an
+    early close, a stage error) are discarded: ``pre`` must leave
+    nothing to undo.
     """
 
     _DONE = object()
 
-    def __init__(self, items, stage, *, depth: int = 2, pre=None,
-                 drop=None):
+    def __init__(self, items, stage, *, depth: int = 2, pre=None):
         self._err: Optional[BaseException] = None
         self._stop = threading.Event()
         self._sem: Optional[threading.Semaphore] = None
         if pre is None:
             self._init_single(items, stage, depth)
         else:
-            self._init_piped(items, stage, depth, pre, drop)
+            self._init_piped(items, stage, depth, pre)
 
     def _init_single(self, items, stage, depth):
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
@@ -289,7 +297,7 @@ class BlockPrefetcher:
             target=worker, daemon=True, name="BlockPrefetcher.stage")]
         self._threads[0].start()
 
-    def _init_piped(self, items, stage, depth, pre, drop):
+    def _init_piped(self, items, stage, depth, pre):
         # both queues are unbounded: the semaphore is the only in-flight
         # bound, released when the consumer takes a staged item (or the
         # pipeline is closed, which aborts the acquire loop).
@@ -315,8 +323,8 @@ class BlockPrefetcher:
                         # the consumer (who would release it) — give it
                         # back so the shared in-flight budget stays exact
                         # across the error. ``pre`` undoes its own partial
-                        # side effects (e.g. DiskZStore.read checks the
-                        # slab back in on a failed load).
+                        # side effects (the driver checks a slab back in
+                        # however its copy ends).
                         self._sem.release()
                         raise
                     mid.put(staged)
@@ -332,19 +340,12 @@ class BlockPrefetcher:
                     self._q.put(self._DONE)
                     return
                 if self._err is not None or self._stop.is_set():
-                    # consumer is going away: drop unstaged items, giving
-                    # ``drop`` a chance to undo ``pre``'s side effects
-                    # (e.g. release a slab-store checkout).
-                    if drop is not None:
-                        drop(item)
-                    continue
+                    continue  # the consumer is going away: drop the item
                 try:
                     self._q.put(stage(item))
                 except BaseException as e:
                     self._err = e
                     self._stop.set()  # unblock the reader's acquire loop
-                    if drop is not None:
-                        drop(item)
 
         self._threads = [
             threading.Thread(target=reader, daemon=True,

@@ -36,6 +36,7 @@ from repro_torch.data import stream as TS  # noqa: E402
 from repro_torch.data import zstore as TZS  # noqa: E402
 from repro_torch.data.synthetic import planted_topics_corpus  # noqa: E402
 from repro_torch.kernels.hdp_z import ops as TZ  # noqa: E402
+from repro_torch.kernels.hdp_z.ref import hdp_z_ref, hdp_z_ref_prologue  # noqa: E402
 from repro_torch.train import checkpoint as CKPT  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -100,6 +101,25 @@ def test_corpus_store_gives_the_reference_blocks(tmp_path):
         np.testing.assert_array_equal(a.mask, b.mask)
 
 
+def test_corpus_store_fills_a_used_buffer_with_its_blocks(tmp_path):
+    corpus = corpus_of(1, 37, v=200)
+    store = TS.ShardedCorpusStore.from_corpus(corpus, 8)
+    store.save(str(tmp_path))
+    for s in (store, TS.ShardedCorpusStore.open(str(tmp_path))):
+        # one buffer reused across blocks, as the driver's pinned ring is,
+        # so the padded rows of the last block hold an earlier block's words
+        tokens = np.full((8, corpus.max_len), 7, np.int32)
+        mask = np.ones((8, corpus.max_len), bool)
+        for b in range(s.num_blocks):
+            s.fill(b, tokens, mask)
+            want = s.block(b)
+            np.testing.assert_array_equal(tokens, want.tokens)
+            np.testing.assert_array_equal(mask, want.mask)
+        assert not tokens[37 - 32:].any() and not mask[37 - 32:].any()
+    with pytest.raises(IndexError):
+        store.fill(5, tokens, mask)
+
+
 def test_prefetcher_order_errors_and_shared_budget():
     assert list(TS.BlockPrefetcher(iter(range(10)), lambda x: x * x, depth=2)) == [
         x * x for x in range(10)]
@@ -133,11 +153,9 @@ def test_prefetcher_order_errors_and_shared_budget():
     with pytest.raises(RuntimeError, match="pre failed"):
         list(TS.BlockPrefetcher(iter(range(10)), lambda x: x, depth=2,
                                 pre=fails_at(5, "pre failed")))
-    dropped = []
     with pytest.raises(RuntimeError, match="stage failed"):
         list(TS.BlockPrefetcher(iter(range(10)), fails_at(5, "stage failed"),
-                                depth=2, pre=lambda x: x, drop=dropped.append))
-    assert 5 in dropped
+                                depth=2, pre=lambda x: x))
 
 
 def test_masked_tables_bitwise_equal_reference_on_tie_heavy_phi():
@@ -224,6 +242,33 @@ def test_one_block_stream_is_bitwise_the_monolithic_chain(z_impl):
         assert torch.equal(getattr(mono, f), getattr(st, f)), f
     assert torch.equal(mono.gen.get_state(), st.gen.get_state())
     assert mono.it == st.it == 3
+
+
+@pytest.mark.parametrize("alias_in_kernel", ["on", "off"])
+def test_block_uniforms_redrawn_from_the_state_give_the_streams_sweeps(alias_in_kernel):
+    """Block b's uniforms are fixed by the iteration's starting state and
+    b: redrawn on a copy of the generator in the driver's order (tables,
+    then one draw a block), the plain sweep of each staged block,
+    the padded last one included, is the stream's next z for it."""
+    corpus = corpus_of(9, 45)
+    stream = StreamingHDP(cfg_of(corpus, alias_in_kernel=alias_in_kernel),
+                          TS.ShardedCorpusStore.from_corpus(corpus, 8), device="cpu")
+    assert stream.store.num_blocks == 6 and stream.in_kernel == (alias_in_kernel == "on")
+    st = chain(stream, 1)
+    z_next = chain(stream, 2).z_blocks.materialize()
+    gen = torch.Generator()
+    gen.set_state(st.gen.get_state())
+    _, _, ztables = stream._phi_tables(gen, st.n, st.varphi, st.psi)
+    plain = hdp_z_ref_prologue if stream.in_kernel else hdp_z_ref
+    for b in range(stream.store.num_blocks):
+        u = stream._uniforms(gen)
+        _, tokens, mask, z = stream._take(stream._to_device(
+            stream._host_z(stream._host_block(b), st.z_blocks)))
+        z_new, m, dn = plain(tokens, mask, z, u, *ztables, kk=K, emit_delta=True)
+        np.testing.assert_array_equal(z_new.numpy(), z_next[b])
+        assert torch.equal(m, TH.doc_topic_counts(z_new, mask, K))
+        assert torch.equal(dn, TH.delta_n(z, z_new, tokens, mask, K, corpus.V))
+    assert not mask[45 - 40:].any() and not z_new[45 - 40:].any()
 
 
 def test_block_streamed_chain_meets_the_reference_system_assertions():
