@@ -106,7 +106,29 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      after; (f) one iteration streamed and monolithic on the corpus
      tiled 10x by documents (819,990 documents): s/iter, peak device
      memory (the streamed one must be lower) and the streamed
-     iteration's phase split (``iteration_profiled``).
+     iteration's phase split (``iteration_profiled``);
+  9. HDP serving (``repro_torch/serve``) on a snapshot of phase 3's corpus
+     (K=1000, W=256) trained 10 iterations from z drawn uniformly over K,
+     queried with 2,048 documents of a PubMed 0.01 replica drawn with
+     another seed: (a) hdp_z_cuda in table mode (no delta) against
+     hdp_z_ref, bitwise in z and m, on both routes, at D in {1, 8, 32,
+     33} x L in {32, 64, 128, 256}, on the float32 snapshot, its compact
+     copy and a restricted one, with empty slots and mixed sweep counts;
+     (b) the fold-in uniforms (Philox) on the card bitwise those on the
+     CPU; (c) the engine (slots 32, burn-in 16, buckets 32-256), its
+     sweep counts zeroed just before and read just after, bitwise direct
+     ``foldin_docs``, with slots 8 and with async admission bitwise slots
+     32 on a subset, every sweep on the lanes route; (d) a 2-worker fleet
+     on the one card (a stream each) bitwise the engine; (e) a publishing
+     ``StreamingHDP.run`` on phase 8's 11 blocks (2 iterations, its chain
+     bitwise the run without publishing) and an ensemble=2 fleet over its
+     registry, bitwise the mean of one engine on each version; (f)
+     held-out perplexity of the snapshot and of its init (printed: the
+     replica's documents are Zipf draws with no topics to learn), and on
+     planted topics the truth's below 0.9x the untrained init's; (g) the
+     engine's docs/s and latencies, the fleet's docs/s, one engine step's
+     wall and device time (profiler) and idle share, its parts, and the
+     sweep at (32, 128) on both routes.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -137,9 +159,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import hdp as H  # noqa: E402
 from repro_torch.core import sharded as SH  # noqa: E402
 from repro_torch.core.polya_urn import ppu_sample  # noqa: E402
+from repro_torch.core.stick import gem_prior_sample  # noqa: E402
 from repro_torch.core.streaming import StreamingHDP  # noqa: E402
 from repro_torch.data.corpus import Corpus  # noqa: E402
 from repro_torch.data.stream import ShardedCorpusStore  # noqa: E402
+from repro_torch.data.synthetic import paper_corpus, planted_topics_corpus  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -154,6 +178,13 @@ from repro_torch.kernels.ssd.ref import (  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 from repro_torch.models.lm import CausalLM  # noqa: E402
+from repro_torch.perf import PhaseTimers  # noqa: E402
+from repro_torch.serve import eval as EV  # noqa: E402
+from repro_torch.serve import foldin as FI  # noqa: E402
+from repro_torch.serve import snapshot as SNAP  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.fleet import ServeFleet  # noqa: E402
+from repro_torch.serve.registry import SnapshotRegistry  # noqa: E402
 
 # H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) peak, and
 # dense bf16 and TF32 tensor-core peaks.
@@ -188,6 +219,23 @@ STREAM_TILES = 10
 # words (PubMed 0.01), in 4 blocks, the last padded
 STREAM_PART_DOCS = 1000
 STREAM_PART_BLOCK_DOCS = 256
+
+# HDP serving (phase 9): the engine's slots, burn-in and length buckets,
+# the query documents (a PubMed 0.01 replica drawn with another seed), the
+# held-out documents of the perplexity check, and the Gibbs iterations
+# that train the served snapshot from z drawn uniformly over K
+SERVE_SLOTS, SERVE_BURNIN = 32, 16
+SERVE_BUCKETS = (32, 64, 128, 256)
+SERVE_QUERIES = 2048
+SERVE_EVAL_DOCS = 512
+SERVE_TRAIN_ITERS = 10
+SERVE_BASE_SEED = 7
+# the subsets that (c)'s slots-8 and async engines, and (e), serve
+SERVE_SUBSET = 256
+SERVE_LIVE_QUERIES = 256
+# (a): the kernel at the serving shapes
+SERVE_DS = (1, 8, 32, 33)
+SERVE_LS = (32, 64, 128, 256)
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -807,6 +855,393 @@ def stream_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int)
     return out
 
 
+def kernel_device_ms(fn, reps: int, name: str) -> float:
+    """The mean device time of the CUDA kernels whose name holds ``name``
+    (``fn`` launches one a call) over ``reps`` calls after one warm-up
+    call, under ``torch.profiler``. The profiler drops kernel records
+    where a call launches many small kernels (it kept 43 and 49 of 50
+    here), so the mean is over the records kept, of which a window must
+    hold half, or it is measured again, up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in mine)
+        if reps // 2 <= count <= reps:
+            return sum(e.self_device_time_total for e in mine) / 1e3 / count
+        print(f"[9] the profiler recorded {count} {name} kernels over {reps} calls; "
+              f"measuring again", flush=True)
+    fail(f"the profiler missed {name} kernels three times")
+
+
+def pad_rows(docs, length: int, dev):
+    """(D, L) tokens and mask of documents, each truncated to L."""
+    tokens = np.zeros((len(docs), length), np.int32)
+    mask = np.zeros((len(docs), length), bool)
+    for i, doc in enumerate(docs):
+        n = min(len(doc), length)
+        tokens[i, :n] = doc[:n]
+        mask[i, :n] = True
+    return torch.from_numpy(tokens).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def bucket_of(n: int) -> int:
+    """The engine's length bucket of an n-token document (the largest
+    bucket for longer ones, which it truncates)."""
+    return next((b for b in SERVE_BUCKETS if n <= b), SERVE_BUCKETS[-1])
+
+
+def run_engine(snap, docs, rids, slots: int, async_admit: bool = False):
+    """Serve ``docs`` (request ids ``rids``) through one engine; returns
+    ``({rid: mixture}, stats)``."""
+    eng = ServeEngine(snap, slots=slots, burnin=SERVE_BURNIN, buckets=SERVE_BUCKETS,
+                      base_seed=SERVE_BASE_SEED, async_admit=async_admit)
+    try:
+        for doc, rid in zip(docs, rids):
+            eng.submit(doc, seed=rid)
+        out = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        eng.close()
+    return out, eng.stats
+
+
+def check_mixtures(got: dict, want: dict, tag: str) -> None:
+    check(sorted(got) == sorted(want), f"{tag}: {len(got)} requests, expected {len(want)}")
+    bad = [rid for rid in want if not np.array_equal(got[rid], want[rid])]
+    check(not bad, f"{tag}: {len(bad)} mixtures differ (first request {bad[:1]})")
+
+
+def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
+    """Phase 9, HDP serving (``repro_torch/serve``) on a snapshot of the
+    PubMed 0.01 replica (K=1000, W=256) trained 10 iterations from z drawn
+    uniformly over K: (a) hdp_z_cuda in table mode against hdp_z_ref at the
+    serving shapes, both routes; (b) the uniforms on the card against the
+    CPU; (c) the engine against direct fold-in, slots 8 against 32, async
+    admission against sync, every sweep on the lanes route; (d) a 2-worker
+    fleet on the card against the engine; (e) a publishing
+    ``StreamingHDP.run`` and an ensemble fleet over its registry; (f)
+    held-out perplexity of the snapshot and of its init, and on planted
+    topics the truth's below the untrained init's; (g) rates and the
+    engine step's split. Returns the numbers for the kernels line."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {}
+    # the served model: z uniform over K, Phi and Psi drawn from it (the
+    # untrained init), then 10 monolithic Gibbs iterations
+    tokens = torch.from_numpy(corpus.tokens).to(dev)
+    mask = torch.from_numpy(corpus.mask).to(dev)
+    gen = H.make_generator(seed + 9, dev)
+    z = torch.where(mask, torch.randint(0, cfg.K, tokens.shape, generator=gen, device=dev,
+                                        dtype=torch.int32), 0)
+    n = H.count_n(z, tokens, mask, cfg.K, cfg.V)
+    phi, varphi = ppu_sample(gen, n, cfg.beta)
+    state = H.HDPState(z=z, n=n, phi=phi, varphi=varphi,
+                       psi=gem_prior_sample(gen, cfg.K, cfg.gamma),
+                       l=torch.zeros((cfg.K,), dtype=torch.int32, device=dev), gen=gen, it=0)
+    snap0 = SNAP.snapshot_from_state(state, cfg, w=cfg.bucket)
+    for _ in range(SERVE_TRAIN_ITERS):
+        state = H.gibbs_iteration(state, tokens, mask, cfg)
+    check(torch.equal(state.n, H.count_n(state.z, tokens, mask, cfg.K, cfg.V)),
+          "served model: n != count_n(z)")
+    snap = SNAP.snapshot_from_state(state, cfg, w=cfg.bucket)
+    compact = SNAP.snapshot_from_state(state, cfg, w=cfg.bucket, compact=True)
+    exact_w = min(max(-(-zops.max_column_nnz(state.phi) // 8) * 8, 8), cfg.K)
+    del tokens, mask, z, n, phi, varphi, state
+    torch.cuda.synchronize()
+    print(f"[9] snapshot of PubMed 0.01 after {SERVE_TRAIN_ITERS} iterations from z "
+          f"uniform over K: K={snap.K} V={snap.V} W={snap.W} (exact width {exact_w}), "
+          f"{snap.nbytes() / 1e6:.1f} MB (compact {compact.nbytes() / 1e6:.1f} MB)",
+          flush=True)
+
+    # the queries: another replica's documents, as long as it makes them
+    t0 = time.perf_counter()
+    q = paper_corpus("pubmed", np.random.default_rng(seed + 1), scale=0.01, max_len=256)
+    docs = [q.tokens[i][q.mask[i]] % cfg.V for i in range(SERVE_QUERIES)]
+    rids = list(range(SERVE_QUERIES))
+    held = slice(SERVE_QUERIES, SERVE_QUERIES + SERVE_EVAL_DOCS)
+    ev_tokens, ev_mask = q.tokens[held] % cfg.V, q.mask[held]
+    del q
+    lengths = np.array([len(d) for d in docs])
+    by_bucket = {b: sum(int(bucket_of(n) == b) for n in lengths) for b in SERVE_BUCKETS}
+    print(f"[9] {SERVE_QUERIES} queries ({time.perf_counter() - t0:.1f} s to draw): "
+          f"lengths {lengths.min()}..{lengths.max()}, mean {lengths.mean():.1f}; "
+          f"by bucket {by_bucket}", flush=True)
+
+    # (a) the kernel at the serving shapes, table mode, both routes; the
+    # plain version (rows independent) runs once per L over all four batches
+    rng = np.random.default_rng(9)
+    limit = HZ.smem_limit(dev)
+    shapes = 0
+    for l in SERVE_LS:
+        check(HZ.route(cfg.K, l, False, limit) == "lanes", f"L={l}: route is not lanes")
+        parts = []
+        for d in SERVE_DS:
+            pick = rng.choice(SERVE_QUERIES, size=d, replace=False)
+            tok, msk = pad_rows([docs[i] for i in pick], l, dev)
+            if d > 1:  # empty slots: the last, and about a quarter of the rest
+                msk[torch.from_numpy(rng.random(d) < 0.25).to(dev)] = False
+                msk[-1] = False
+                msk[0, 0] = True
+            parts.append((tok, msk, torch.from_numpy(pick.astype(np.int64)),
+                          torch.from_numpy(rng.integers(0, SERVE_BURNIN + 1, d)),
+                          torch.from_numpy(rng.integers(0, cfg.K, (d, l)).astype(np.int32))))
+        tok, msk, seeds, sweeps, z_rand = (torch.cat(x).to(dev) for x in zip(*parts))
+        u = FI.sweep_uniforms(SERVE_BASE_SEED, seeds, sweeps, l)
+        u0 = FI.sweep_uniforms(SERVE_BASE_SEED, seeds, torch.zeros_like(sweeps), l)
+        sub, remapped = FI.restrict_snapshot(snap, tok, bucket=64)
+        check(all(t.is_contiguous() for t in sub) and remapped.dtype == torch.int32,
+              "restricted snapshot: tables not contiguous or tokens not int32")
+        for name, s_, t_ in (("float32", snap, tok), ("compact", compact, tok),
+                             ("restricted", sub, remapped)):
+            # mixed sweep counts: fresh rows from the init, the rest mid-chain
+            z = torch.where((sweeps == 0)[:, None], FI.init_z(t_, msk, u0, s_.fpack, s_.ipack),
+                            torch.where(msk, z_rand, 0))
+            want = hdp_z_ref(t_, msk, z, u, s_.q_a, s_.fpack, s_.ipack, kk=cfg.K)
+            lo = 0
+            for d in SERVE_DS:
+                rows = slice(lo, lo + d)
+                lo += d
+                args_k = (t_[rows], msk[rows], z[rows], u[rows])
+                tables = dict(kk=cfg.K, q_a=s_.q_a, fpack=s_.fpack, ipack=s_.ipack)
+                before = dict(hdp_z_cuda.launches_by_route)
+                got = {"lanes": hdp_z_cuda(*args_k, **tables),
+                       "warp": HZ._launch("warp", *args_k, **tables)}
+                torch.cuda.synchronize()
+                check(hdp_z_cuda.launches_by_route == {"lanes": before["lanes"] + 1,
+                                                      "warp": before["warp"] + 1},
+                      f"(a) D={d} L={l} {name}: launches by route "
+                      f"{hdp_z_cuda.launches_by_route}, from {before}")
+                for route, out_r in got.items():
+                    for what, a, b in zip(("z", "m"), out_r, (want[0][rows], want[1][rows])):
+                        check(torch.equal(a, b), f"(a) D={d} L={l} {name} {route}: {what} "
+                                                 f"differs (max {max_int_err(a, b)})")
+                shapes += 1
+    print(f"[9] (a) hdp_z_cuda == hdp_z_ref bitwise (z, m), table mode, on both routes, "
+          f"at {shapes} shapes: D in {SERVE_DS} x L in {SERVE_LS} x (float32, compact, "
+          f"restricted) tables, with empty slots and mixed sweep counts "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+
+    # (b) the uniforms, card against CPU
+    seeds_all = torch.arange(SERVE_QUERIES, dtype=torch.int64) * 7919 + 13
+    sweeps_all = torch.arange(SERVE_QUERIES, dtype=torch.int64) % (SERVE_BURNIN + 1)
+    u_cpu = FI.sweep_uniforms(SERVE_BASE_SEED, seeds_all, sweeps_all, 256)
+    u_dev = FI.sweep_uniforms(SERVE_BASE_SEED, seeds_all.to(dev), sweeps_all.to(dev), 256)
+    check(torch.equal(u_dev.cpu(), u_cpu), "(b) sweep_uniforms on the card != on the CPU")
+    check(bool(((u_cpu >= 0) & (u_cpu < 1)).all()), "(b) a uniform outside [0, 1)")
+    print(f"[9] (b) sweep_uniforms, {SERVE_QUERIES} seeds x 256 positions x 3: card == "
+          f"CPU bitwise, mean {float(u_cpu.mean()):.5f}", flush=True)
+    del u_cpu, u_dev
+
+    # (c) the main path: the engine, its launches counted
+    torch.cuda.synchronize()
+    hdp_z_cuda.launches = 0
+    hdp_z_cuda.launches_by_route.update(dict.fromkeys(HZ.ROUTES, 0))
+    served, stats = run_engine(snap, docs, rids, SERVE_SLOTS)
+    out["launches"] = hdp_z_cuda.launches
+    out["launches_by_route"] = dict(hdp_z_cuda.launches_by_route)
+    check(out["launches_by_route"] == {"lanes": stats.steps, "warp": 0},
+          f"(c) engine: launches by route {out['launches_by_route']}, expected "
+          f"{stats.steps} (its steps) on lanes")
+    summary = stats.summary()
+    for rid in rids:
+        th = served[rid]
+        check(th.shape == (cfg.K,) and bool(np.isfinite(th).all()) and bool((th >= 0).all())
+              and abs(float(th.sum()) - 1.0) < 1e-4, f"(c) request {rid}: not a mixture")
+    direct = {}
+    for b in SERVE_BUCKETS:
+        idx = [i for i in rids if bucket_of(len(docs[i])) == b]
+        if idx:
+            tok, msk = pad_rows([docs[i] for i in idx], b, dev)
+            theta = FI.foldin_docs(snap, tok, msk, torch.tensor(idx, device=dev),
+                                   SERVE_BASE_SEED, burnin=SERVE_BURNIN)
+            direct.update(zip(idx, theta.cpu().numpy()))
+    check_mixtures(served, direct, "(c) engine against foldin_docs")
+    sub = rids[:SERVE_SUBSET]
+    check_mixtures(run_engine(snap, [docs[i] for i in sub], sub, 8)[0],
+                   {i: served[i] for i in sub}, "(c) slots 8 against slots 32")
+    check_mixtures(run_engine(snap, [docs[i] for i in sub], sub, SERVE_SLOTS, True)[0],
+                   {i: served[i] for i in sub}, "(c) async admission against sync")
+    print(f"[9] (c) engine (slots {SERVE_SLOTS}, burn-in {SERVE_BURNIN}, buckets "
+          f"{SERVE_BUCKETS}): {summary['completed']} requests in {summary['steps']} steps, "
+          f"{summary['docs_per_s']} docs/s, p50 {summary['p50_latency_ms']} ms, p95 "
+          f"{summary['p95_latency_ms']} ms; == foldin_docs bitwise; slots 8 == slots 32 "
+          f"and async == sync on {SERVE_SUBSET} requests; sweeps {out['launches']} (by "
+          f"route {out['launches_by_route']}); {time.perf_counter() - t_phase:.1f} s into the "
+          f"phase", flush=True)
+
+    # (d) two workers on one card
+    with ServeFleet(snap, workers=2, slots=SERVE_SLOTS, burnin=SERVE_BURNIN,
+                    buckets=SERVE_BUCKETS, base_seed=SERVE_BASE_SEED, device=dev) as fleet:
+        for doc, rid in zip(docs, rids):
+            fleet.submit(doc, seed=rid)
+        fleet_out = fleet.run(timeout=600)
+        fstats = fleet.stats_summary()
+    check_mixtures(fleet_out, served, "(d) 2-worker fleet against the engine")
+    print(f"[9] (d) 2 workers on one card (a stream each) == the engine bitwise: "
+          f"{fstats['docs_per_s']} docs/s, p50 {fstats['p50_latency_ms']} ms, p95 "
+          f"{fstats['p95_latency_ms']} ms, steps by worker "
+          f"{[w['steps'] for w in fstats['per_worker']]}; {time.perf_counter() - t_phase:.1f} s "
+          f"into the phase", flush=True)
+
+    # (e) a live run that publishes, and an ensemble over its registry
+    store = ShardedCorpusStore.from_corpus(corpus, STREAM_BLOCK_DOCS)
+    stream = StreamingHDP(cfg, store, device=dev)
+    live = rids[:SERVE_LIVE_QUERIES]
+    with tempfile.TemporaryDirectory() as d:
+        reg = SnapshotRegistry(d)
+        st = stream.run(stream.init_state(seed), 2, registry=reg, publish_every_iters=1)
+        check(reg.versions() == [1, 2], f"(e) registry versions {reg.versions()}")
+        check_streams_equal(st, stream.run(stream.init_state(seed), 2),
+                            "(e) the publishing run against the plain run")
+        per_version = [run_engine(reg.load(v, device=dev), [docs[i] for i in live], live,
+                                  SERVE_SLOTS)[0] for v in (1, 2)]
+        with ServeFleet(reg, workers=2, ensemble=2, slots=SERVE_SLOTS,
+                        burnin=SERVE_BURNIN, buckets=SERVE_BUCKETS,
+                        base_seed=SERVE_BASE_SEED, device=dev) as fleet:
+            for rid in live:
+                fleet.submit(docs[rid], seed=rid)
+            ens = fleet.run(timeout=600)
+        widths = [reg.manifest()["versions"][v]["W"] for v in ("1", "2")]
+    check_mixtures(ens, {rid: np.mean(np.stack([per_version[0][rid], per_version[1][rid]]),
+                                      axis=0, dtype=np.float32) for rid in live},
+                   "(e) ensemble against the mean of the two versions' engines")
+    print(f"[9] (e) StreamingHDP.run, {store.num_blocks} blocks, 2 iterations, published "
+          f"v1, v2 (W {widths}); its chain == the run without publishing bitwise; an "
+          f"ensemble=2 fleet == the mean of one engine on each version, bitwise, on "
+          f"{len(live)} requests; {time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+    del stream, st
+
+    # (f) perplexity: the served snapshot and its init measured; the ranking
+    # checked where the data has topics to learn (the replica has none)
+    ppl = EV.heldout_perplexity(snap, ev_tokens, ev_mask, SERVE_BASE_SEED + 2,
+                                burnin=SERVE_BURNIN)
+    ppl0 = EV.heldout_perplexity(snap0, ev_tokens, ev_mask, SERVE_BASE_SEED + 2,
+                                 burnin=SERVE_BURNIN)
+    check(np.isfinite(ppl) and np.isfinite(ppl0) and ppl > 1 and ppl0 > 1,
+          f"(f) held-out perplexities {ppl}, {ppl0}")
+    pc, truth = planted_topics_corpus(np.random.default_rng(seed), D=48, V=48, K_true=3,
+                                      doc_len=(40, 60))
+    pcfg = H.HDPConfig(K=12, V=48, bucket=12, z_impl="cuda", hist_cap=64)
+    ptok, pmsk = (torch.from_numpy(a[:40]).to(dev) for a in (pc.tokens, pc.mask))
+    untrained = H.init_state(H.make_generator(seed, dev), ptok, pmsk, pcfg)
+    phi_t = torch.zeros((12, 48), device=dev)
+    phi_t[:3] = torch.from_numpy(truth.phi.astype(np.float32)).to(dev)
+    psi_t = torch.full((12,), 1e-6, device=dev)
+    psi_t[:3] = torch.from_numpy(truth.psi.astype(np.float32)).to(dev)
+    p_truth, p_init = (EV.heldout_perplexity(s_, pc.tokens[40:], pc.mask[40:], 5,
+                                             burnin=SERVE_BURNIN) for s_ in (
+        SNAP.build_snapshot(phi_t, psi_t / psi_t.sum(), pcfg.alpha),
+        SNAP.snapshot_from_state(untrained, pcfg)))
+    check(p_truth < 0.9 * p_init,
+          f"(f) planted topics: the truth's perplexity {p_truth} not below 0.9 x the "
+          f"untrained init's {p_init}")
+    print(f"[9] (f) held-out perplexity on {SERVE_EVAL_DOCS} replica documents: "
+          f"{ppl:.3f} after {SERVE_TRAIN_ITERS} iterations, {ppl0:.3f} at the init (the "
+          f"replica's documents are Zipf draws with no topics to learn); on planted "
+          f"topics (8 held-out documents of 40-60 tokens) the truth {p_truth:.3f} < 0.9 x "
+          f"the untrained init {p_init:.3f}", flush=True)
+
+    # (g) the engine step: wall against device time, its split, the sweep
+    sub_docs = [docs[i] for i in sub]
+    t0 = time.perf_counter()
+    _, sub_stats = run_engine(snap, sub_docs, sub, SERVE_SLOTS)
+    wall_s = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, prof_stats = run_engine(snap, sub_docs, sub, SERVE_SLOTS)
+        prof_wall_s = time.perf_counter() - t0
+    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in evts) / 1e3
+    sweep_ms = sum(e.self_device_time_total for e in evts if "hdp_z" in e.key) / 1e3
+    top = sorted(evts, key=lambda e: -e.self_device_time_total)[:6]
+    steps = sub_stats.steps
+    step = dict(steps=steps, wall_ms=wall_s * 1e3 / steps,
+                device_ms=busy_ms / prof_stats.steps, sweep_device_ms=sweep_ms / prof_stats.steps,
+                profiled_wall_ms=prof_wall_s * 1e3 / prof_stats.steps,
+                device_kernels_per_step=sum(e.count for e in evts) / prof_stats.steps,
+                top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3
+                                         / prof_stats.steps for e in top})
+    step["idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
+    # the parts of one steady step at (32, 128), each between synchronizes
+    tok, msk = pad_rows([docs[i] for i in sub[:SERVE_SLOTS]], 128, dev)
+    seeds = torch.tensor(sub[:SERVE_SLOTS], dtype=torch.int64, device=dev)
+    sweeps_h = np.arange(SERVE_SLOTS, dtype=np.int32) % SERVE_BURNIN
+    z0 = FI.init_z(tok, msk, FI.sweep_uniforms(SERVE_BASE_SEED, seeds, torch.zeros_like(seeds),
+                                               128), snap.fpack, snap.ipack)
+    timers = PhaseTimers(dev)
+    for _ in range(20):
+        with timers.phase("counts_h2d"):
+            sweeps = torch.tensor(sweeps_h, device=dev)
+        with timers.phase("uniforms"):
+            u = FI.sweep_uniforms(SERVE_BASE_SEED, seeds, sweeps + 1, 128)
+        with timers.phase("init_z"):
+            z_init = FI.init_z(tok, msk, FI.sweep_uniforms(
+                SERVE_BASE_SEED, seeds, torch.zeros_like(sweeps), 128), snap.fpack, snap.ipack)
+            z = torch.where((sweeps == 0)[:, None], z_init, z0)
+        with timers.phase("sweep"):
+            _, m = hdp_z_cuda(tok, msk, z, u, kk=cfg.K, q_a=snap.q_a, fpack=snap.fpack,
+                              ipack=snap.ipack)
+        with timers.phase("retire"):
+            rows = torch.tensor([0, 1], dtype=torch.int64, device=dev)
+            FI.topic_mixture_from_m(m[rows], snap.psi, snap.alpha).cpu()
+    step["split_ms"] = {k: v * 1e3 / 20 for k, v in timers.totals.items()}
+    # the sweep alone at (32, 128) on both routes, table mode
+    args_k = dict(kk=cfg.K, q_a=snap.q_a, fpack=snap.fpack, ipack=snap.ipack)
+    lanes_fn = lambda: hdp_z_cuda(tok, msk, z0, u, **args_k)  # noqa: E731
+    warp_fn = lambda: HZ._launch("warp", tok, msk, z0, u, **args_k)  # noqa: E731
+    sweep_t = {}
+    for route, fn in (("lanes", lanes_fn), ("warp", warp_fn)):
+        sweep_t[route] = dict(kernel_device_ms=kernel_device_ms(fn, 50, "hdp_z"),
+                              event_ms=cuda_time_ms(fn, 20), host_ms=host_time_ms(fn, 20))
+    live_t = HZ.live_slots(snap.fpack[:, 0].float()).to(torch.int64)
+    live_tok = live_t[tok.to(torch.int64)][msk]
+    sweep_t["plain_ms"] = cuda_time_ms(
+        lambda: hdp_z_ref(tok, msk, z0, u, snap.q_a, snap.fpack, snap.ipack, kk=cfg.K), 1)
+    sweep_t["bound_ms"], sweep_t["bound_by"] = sweep_bound_ms(
+        SERVE_SLOTS, 128, cfg.K, cfg.V, snap.W, int(msk.sum()), False, False,
+        int(live_t.sum()), int(live_tok.sum()))
+    sweep_t["shape"] = f"B={SERVE_SLOTS} L=128 K={cfg.K} W={snap.W} table mode"
+    rates = {k: summary[k] for k in ("docs_per_s", "p50_latency_ms", "p95_latency_ms",
+                                      "completed", "steps")}
+    print(f"[9] (g) engine: {rates['docs_per_s']} docs/s, p50 {rates['p50_latency_ms']} ms, "
+          f"p95 {rates['p95_latency_ms']} ms; fleet (2 workers, one card) "
+          f"{fstats['docs_per_s']} docs/s", flush=True)
+    print(f"[9] (g) one engine step ({SERVE_SUBSET} requests, {steps} steps): wall "
+          f"{step['wall_ms']:.3f} ms, device {step['device_ms']:.3f} ms (profiler; sweep "
+          f"{step['sweep_device_ms']:.3f} ms), idle {step['idle_share']:.1%}, "
+          f"{step['device_kernels_per_step']:.0f} kernels a step; split at (32, 128), "
+          f"synchronized: " + ", ".join(f"{k} {v:.3f} ms" for k, v in step["split_ms"].items()),
+          flush=True)
+    print(f"[9] (g) sweep at {sweep_t['shape']}, kernel device time: lanes "
+          f"{sweep_t['lanes']['kernel_device_ms']:.4f} ms, warp "
+          f"{sweep_t['warp']['kernel_device_ms']:.4f} ms; whole call by events, back to back: "
+          f"lanes {sweep_t['lanes']['event_ms']:.4f} ms (host {sweep_t['lanes']['host_ms']:.4f} "
+          f"ms), warp {sweep_t['warp']['event_ms']:.4f} ms; plain {sweep_t['plain_ms']:.1f} ms; "
+          f"bound {sweep_t['bound_ms']:.5f} ms ({sweep_t['bound_by']})", flush=True)
+    print(f"[9] phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    out["serve_hdp"] = {
+        "engine": rates, "fleet_2_workers_one_card": {
+            k: fstats[k] for k in ("docs_per_s", "p50_latency_ms", "p95_latency_ms",
+                                   "completed", "steps")},
+        "step": step, "sweep": sweep_t, "heldout_perplexity": ppl,
+        "heldout_perplexity_init": ppl0, "planted_perplexity": {
+            "truth": p_truth, "untrained_init": p_init}, "snapshot": {
+            "K": snap.K, "V": snap.V, "W": snap.W, "exact_w": exact_w,
+            "mbytes": snap.nbytes() / 1e6, "compact_mbytes": compact.nbytes() / 1e6},
+        "queries": SERVE_QUERIES, "by_bucket": by_bucket,
+        "slots": SERVE_SLOTS, "burnin": SERVE_BURNIN}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1228,6 +1663,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     streamed = stream_phase(corpus, cfg, dev, seed=0)
 
+    # ---- 9. HDP serving ------------------------------------------------------
+    served = serve_phase(corpus, cfg, dev, seed=0)
+
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
@@ -1237,6 +1675,9 @@ def main() -> int:
         # the streamed main path's sweeps (phase 8 (b))
         "launches_streamed": streamed["launches"],
         "launches_streamed_by_route": streamed["launches_by_route"],
+        # the serving engine's sweeps (phase 9 (c))
+        "launches_served": served["launches"],
+        "launches_served_by_route": served["launches_by_route"],
         "max_abs_err": worst,
         "ms": main["ms"], "earlier_ms": main["earlier_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1270,7 +1711,7 @@ def main() -> int:
         "decode_tok_s_per_batch", "warmup_batches")},
         "spread": spread},
         "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale},
-        "stream_tiled": streamed["tiled"]}),
+        "stream_tiled": streamed["tiled"], "serve_hdp": served["serve_hdp"]}),
         flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -438,6 +438,57 @@ class StreamingHDP:
             out = self._tail(gen, dh_acc, state, n_run, phi, varphi)
         return out, timers
 
+    def run(
+        self, state: StreamingState, iters: int, *,
+        ckpt_dir: Optional[str] = None,
+        ckpt_every_iters: Optional[int] = None,
+        ckpt_every_blocks: Optional[int] = None,
+        registry=None, publish_every_iters: Optional[int] = None,
+        publish_w: Optional[int] = None, publish_compact: bool = False,
+        publish_keep: Optional[int] = None,
+    ) -> StreamingState:
+        """Drive ``iters`` Gibbs iterations; optionally checkpoint, and
+        publish serving snapshots.
+
+        ``registry`` (a ``serve.registry.SnapshotRegistry``) with
+        ``publish_every_iters`` turns a live run into a fleet's feed:
+        every N completed iterations the current (Phi, Psi) is distilled
+        and published atomically, and fleet workers watching the registry
+        swap to it between engine steps. Publishing only reads the state
+        and draws nothing, so the chain is bitwise the one without it."""
+        if bool(publish_every_iters) != (registry is not None):
+            raise ValueError(
+                "registry and publish_every_iters go together: passing "
+                "only one would silently never publish")
+        for _ in range(iters):
+            state = self.iteration(state, ckpt_dir=ckpt_dir,
+                                   ckpt_every_blocks=ckpt_every_blocks)
+            if ckpt_dir and ckpt_every_iters and state.it % ckpt_every_iters == 0:
+                self.save(ckpt_dir, state)
+            if registry is not None and state.it % publish_every_iters == 0:
+                self.export_snapshot(registry, state, w=publish_w,
+                                     compact=publish_compact, keep=publish_keep)
+        return state
+
+    def export_snapshot(self, dest, state: StreamingState, *,
+                        w: Optional[int] = None, compact: bool = False,
+                        keep: Optional[int] = None):
+        """Distill the current model into a serving snapshot
+        (``serve/snapshot.py``): Phi, Psi and the word-sparse tables, exact
+        for the snapshot's life since serving never resamples Phi.
+
+        ``dest`` is a snapshot directory (one artifact, replaced in place)
+        or a ``SnapshotRegistry``, into which the snapshot is published as
+        a new version (``keep`` bounds the registry's retention)."""
+        from repro_torch.serve import snapshot as SNAP
+
+        snap = SNAP.snapshot_from_state(state, self.cfg, w=w, compact=compact)
+        if hasattr(dest, "publish"):
+            dest.publish(snap, keep=keep)
+        else:
+            SNAP.save(dest, snap)
+        return snap
+
     # -- checkpoints ----------------------------------------------------------
     # One step per saved payload, step = it * B + cursor, so mid-epoch saves
     # order between iteration boundaries. z slabs are not in the payload: a

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 
 import torch
@@ -54,6 +55,7 @@ LANES_MAX_L = 2**15 - 1
 COMPACT_MAX_K = 2**15
 # table mode's (fpack, ipack) element types: float32 tables, compact tables
 TABLE_DTYPES = ((torch.float32, torch.int32), (torch.bfloat16, torch.int16))
+_COUNT_LOCK = threading.Lock()
 
 
 @functools.cache
@@ -274,8 +276,9 @@ def _launch(r: str, tokens, mask, z, uniforms, *, kk, q_a=None, fpack=None,
             raise ValueError(f"unknown hdp_z route {r!r}; one of {ROUTES}")
     if err:
         raise RuntimeError(f"hdp_z ({r}) kernel launch failed: cudaError_t {err}")
-    hdp_z_cuda.launches += 1
-    hdp_z_cuda.launches_by_route[r] += 1
+    with _COUNT_LOCK:  # fleet workers launch from several threads
+        hdp_z_cuda.launches += 1
+        hdp_z_cuda.launches_by_route[r] += 1
     return (z_out, m, dn) if emit_delta else (z_out, m)
 
 
