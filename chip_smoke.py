@@ -125,10 +125,15 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      registry, bitwise the mean of one engine on each version; (f)
      held-out perplexity of the snapshot and of its init (printed: the
      replica's documents are Zipf draws with no topics to learn), and on
-     planted topics the truth's below 0.9x the untrained init's; (g) the
-     engine's docs/s and latencies, the fleet's docs/s, one engine step's
-     wall and device time (profiler) and idle share, its parts, and the
-     sweep at (32, 128) on both routes.
+     planted topics (500 training documents of 40-60 tokens, 200 held
+     out) the port's sampler trained 15 iterations on the card from z
+     uniform over K, and the truth, each below 0.9x the untrained
+     (single-topic) init's; (g) the engine's docs/s and latencies, the
+     fleet's docs/s, one engine step's wall and device time (profiler,
+     every step's sweep record kept) and idle share (an upper estimate:
+     the profiler may drop records of the small kernels), its parts, and
+     the sweep at (32, 128) on both routes, with the bound of the words
+     those 32 documents hold.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -230,6 +235,9 @@ SERVE_QUERIES = 2048
 SERVE_EVAL_DOCS = 512
 SERVE_TRAIN_ITERS = 10
 SERVE_BASE_SEED = 7
+# (f): the planted-topics corpus (documents of 40-60 tokens, the last
+# ones held out) and the Gibbs iterations the port's sampler trains on it
+PLANTED_DOCS, PLANTED_HELDOUT, PLANTED_ITERS = 700, 200, 15
 # the subsets that (c)'s slots-8 and async engines, and (e), serve
 SERVE_SUBSET = 256
 SERVE_LIVE_QUERIES = 256
@@ -397,31 +405,36 @@ def host_time_ms(fn, reps: int) -> float:
     return ms
 
 
-def sweep_bound_ms(d, l, kk, vv, w, live, in_kernel, emit, row_slots, token_slots,
-                   table_bytes=4):
+def sweep_bound_ms(d, l, kk, vv, w, tok_words, live_w, in_kernel, emit, table_bytes=4):
     """Least time for one sweep: each byte the sweep needs read once and
     each output byte written once over the memory rate, against the
     float32 work every live token needs whichever branch it takes over
     the float32 rate. What the sums need depends on the data: a slot
-    past a word's live slots adds +-0.0 (``hdp_z.live_slots``).
+    past a word's live slots adds +-0.0 (``hdp_z.live_slots``), and only
+    the rows of the words the live tokens hold are read.
 
-    Bytes: mask, z in and z out over all D*L positions (padding keeps its
-    z); tokens and uniforms only at the ``live`` positions; m (D, K); the
-    supports' values and ids at the words' live slots (``row_slots`` in
-    all) and apsi, or q_a, those values and ids and the alias tables
-    over their full (V, W) (a draw reads any slot), at ``table_bytes`` an
-    element (4, or 2 for compact tables); dn (K, V) with emit.
-    Operations: per live slot of each live token's word (``token_slots``
-    in all) a product and a prefix add for term (b); prologue mode also
-    a product and an add for wa and q_a."""
+    ``tok_words`` holds the word of each live token, ``live_w`` the live
+    slots of each of the V words. Bytes: mask, z in and z out over all
+    D*L positions (padding keeps its z); tokens and uniforms only at the
+    live positions; m (D, K); of each distinct word the tokens hold, the
+    support's values and ids at its live slots and, in table mode, its
+    q_a; apsi (K,) in prologue mode; in table mode an alias slot (prob
+    and alias) for each live token's global-branch draw, or each slot of
+    those words' rows where there are fewer slots than live tokens, at
+    ``table_bytes`` an element (4, or 2 for compact tables); dn (K, V)
+    with emit. Operations: per live slot of each live token's word a
+    product and a prefix add for term (b); prologue mode also a product
+    and an add for wa and q_a."""
+    live = tok_words.numel()
+    words = torch.unique(tok_words)
+    row_slots = int(live_w[words].sum())
     nbytes = d * l * (1 + 4 + 4) + live * (4 + 12) + d * kk * 4
     nbytes += ((row_slots * 8 + kk * 4) if in_kernel else
-               (vv * 4 + (row_slots + vv * w) * 2 * table_bytes))
+               (words.numel() * 4
+                + (row_slots + min(live, words.numel() * w)) * 2 * table_bytes))
     nbytes += kk * vv * 4 if emit else 0
-    ops = token_slots * (4 if in_kernel else 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    ops = int(live_w[tok_words].sum()) * (4 if in_kernel else 2)
+    return bound_ms(nbytes, ops, FP32_OPS_PER_S)
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float):
@@ -880,6 +893,19 @@ def kernel_device_ms(fn, reps: int, name: str) -> float:
     fail(f"the profiler missed {name} kernels three times")
 
 
+def random_z_state(gen, tokens, mask, cfg: H.HDPConfig) -> H.HDPState:
+    """An HDP state whose z is drawn uniformly over K, with Phi and Psi
+    drawn from it: the untrained start of phase 9's models."""
+    z = torch.where(mask, torch.randint(0, cfg.K, tokens.shape, generator=gen,
+                                        device=tokens.device, dtype=torch.int32), 0)
+    n = H.count_n(z, tokens, mask, cfg.K, cfg.V)
+    phi, varphi = ppu_sample(gen, n, cfg.beta)
+    return H.HDPState(z=z, n=n, phi=phi, varphi=varphi,
+                      psi=gem_prior_sample(gen, cfg.K, cfg.gamma),
+                      l=torch.zeros((cfg.K,), dtype=torch.int32, device=tokens.device),
+                      gen=gen, it=0)
+
+
 def pad_rows(docs, length: int, dev):
     """(D, L) tokens and mask of documents, each truncated to L."""
     tokens = np.zeros((len(docs), length), np.int32)
@@ -938,14 +964,7 @@ def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
     # untrained init), then 10 monolithic Gibbs iterations
     tokens = torch.from_numpy(corpus.tokens).to(dev)
     mask = torch.from_numpy(corpus.mask).to(dev)
-    gen = H.make_generator(seed + 9, dev)
-    z = torch.where(mask, torch.randint(0, cfg.K, tokens.shape, generator=gen, device=dev,
-                                        dtype=torch.int32), 0)
-    n = H.count_n(z, tokens, mask, cfg.K, cfg.V)
-    phi, varphi = ppu_sample(gen, n, cfg.beta)
-    state = H.HDPState(z=z, n=n, phi=phi, varphi=varphi,
-                       psi=gem_prior_sample(gen, cfg.K, cfg.gamma),
-                       l=torch.zeros((cfg.K,), dtype=torch.int32, device=dev), gen=gen, it=0)
+    state = random_z_state(H.make_generator(seed + 9, dev), tokens, mask, cfg)
     snap0 = SNAP.snapshot_from_state(state, cfg, w=cfg.bucket)
     for _ in range(SERVE_TRAIN_ITERS):
         state = H.gibbs_iteration(state, tokens, mask, cfg)
@@ -954,7 +973,7 @@ def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
     snap = SNAP.snapshot_from_state(state, cfg, w=cfg.bucket)
     compact = SNAP.snapshot_from_state(state, cfg, w=cfg.bucket, compact=True)
     exact_w = min(max(-(-zops.max_column_nnz(state.phi) // 8) * 8, 8), cfg.K)
-    del tokens, mask, z, n, phi, varphi, state
+    del tokens, mask, state
     torch.cuda.synchronize()
     print(f"[9] snapshot of PubMed 0.01 after {SERVE_TRAIN_ITERS} iterations from z "
           f"uniform over K: K={snap.K} V={snap.V} W={snap.W} (exact width {exact_w}), "
@@ -1120,46 +1139,73 @@ def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
           flush=True)
     del stream, st
 
-    # (f) perplexity: the served snapshot and its init measured; the ranking
-    # checked where the data has topics to learn (the replica has none)
+    # (f) perplexity: the served snapshot and its init measured (the
+    # replica's documents are Zipf draws with no topics to learn); the
+    # ranking checked on planted topics, where the port's sampler trains
+    # 15 iterations from z uniform over K on the card
     ppl = EV.heldout_perplexity(snap, ev_tokens, ev_mask, SERVE_BASE_SEED + 2,
                                 burnin=SERVE_BURNIN)
     ppl0 = EV.heldout_perplexity(snap0, ev_tokens, ev_mask, SERVE_BASE_SEED + 2,
                                  burnin=SERVE_BURNIN)
     check(np.isfinite(ppl) and np.isfinite(ppl0) and ppl > 1 and ppl0 > 1,
           f"(f) held-out perplexities {ppl}, {ppl0}")
-    pc, truth = planted_topics_corpus(np.random.default_rng(seed), D=48, V=48, K_true=3,
-                                      doc_len=(40, 60))
+    n_train = PLANTED_DOCS - PLANTED_HELDOUT
+    pc, truth = planted_topics_corpus(np.random.default_rng(0), D=PLANTED_DOCS, V=48,
+                                      K_true=3, doc_len=(40, 60))
     pcfg = H.HDPConfig(K=12, V=48, bucket=12, z_impl="cuda", hist_cap=64)
-    ptok, pmsk = (torch.from_numpy(a[:40]).to(dev) for a in (pc.tokens, pc.mask))
+    ptok, pmsk = (torch.from_numpy(a[:n_train]).to(dev) for a in (pc.tokens, pc.mask))
     untrained = H.init_state(H.make_generator(seed, dev), ptok, pmsk, pcfg)
+    chain = random_z_state(H.make_generator(seed + 1, dev), ptok, pmsk, pcfg)
+    for _ in range(PLANTED_ITERS):
+        chain = H.gibbs_iteration(chain, ptok, pmsk, pcfg)
     phi_t = torch.zeros((12, 48), device=dev)
     phi_t[:3] = torch.from_numpy(truth.phi.astype(np.float32)).to(dev)
     psi_t = torch.full((12,), 1e-6, device=dev)
     psi_t[:3] = torch.from_numpy(truth.psi.astype(np.float32)).to(dev)
-    p_truth, p_init = (EV.heldout_perplexity(s_, pc.tokens[40:], pc.mask[40:], 5,
-                                             burnin=SERVE_BURNIN) for s_ in (
-        SNAP.build_snapshot(phi_t, psi_t / psi_t.sum(), pcfg.alpha),
-        SNAP.snapshot_from_state(untrained, pcfg)))
+    p_truth, p_init, p_trained = (
+        EV.heldout_perplexity(s_, pc.tokens[n_train:], pc.mask[n_train:], 5,
+                              burnin=SERVE_BURNIN) for s_ in (
+            SNAP.build_snapshot(phi_t, psi_t / psi_t.sum(), pcfg.alpha),
+            SNAP.snapshot_from_state(untrained, pcfg),
+            SNAP.snapshot_from_state(chain, pcfg)))
     check(p_truth < 0.9 * p_init,
           f"(f) planted topics: the truth's perplexity {p_truth} not below 0.9 x the "
           f"untrained init's {p_init}")
+    check(p_trained < 0.9 * p_init,
+          f"(f) planted topics: the trained model's perplexity {p_trained} not below "
+          f"0.9 x the untrained init's {p_init} (the truth's {p_truth})")
     print(f"[9] (f) held-out perplexity on {SERVE_EVAL_DOCS} replica documents: "
           f"{ppl:.3f} after {SERVE_TRAIN_ITERS} iterations, {ppl0:.3f} at the init (the "
           f"replica's documents are Zipf draws with no topics to learn); on planted "
-          f"topics (8 held-out documents of 40-60 tokens) the truth {p_truth:.3f} < 0.9 x "
-          f"the untrained init {p_init:.3f}", flush=True)
+          f"topics ({PLANTED_HELDOUT} held-out documents of 40-60 tokens) the port's "
+          f"sampler after {PLANTED_ITERS} iterations on {n_train} documents "
+          f"{p_trained:.3f} and the truth {p_truth:.3f}, each < 0.9 x the untrained "
+          f"init {p_init:.3f}", flush=True)
 
     # (g) the engine step: wall against device time, its split, the sweep
     sub_docs = [docs[i] for i in sub]
     t0 = time.perf_counter()
     _, sub_stats = run_engine(snap, sub_docs, sub, SERVE_SLOTS)
     wall_s = time.perf_counter() - t0
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, prof_stats = run_engine(snap, sub_docs, sub, SERVE_SLOTS)
-        prof_wall_s = time.perf_counter() - t0
-    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the profiler drops kernel records where many small kernels run (see
+    # kernel_device_ms): the run is profiled again until it kept every
+    # step's sweep, and the device time is of the records kept, so the
+    # idle share is an upper estimate
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, prof_stats = run_engine(snap, sub_docs, sub, SERVE_SLOTS)
+            prof_wall_s = time.perf_counter() - t0
+        evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        sweeps_kept = sum(e.count for e in evts if "hdp_z" in e.key)
+        if sweeps_kept == prof_stats.steps:
+            break
+        print(f"[9] (g) the profiler kept {sweeps_kept} of {prof_stats.steps} sweeps; "
+              f"profiling again", flush=True)
+    else:
+        fail("(g) the profiler missed sweeps of the engine's steps three times")
     busy_ms = sum(e.self_device_time_total for e in evts) / 1e3
     sweep_ms = sum(e.self_device_time_total for e in evts if "hdp_z" in e.key) / 1e3
     top = sorted(evts, key=lambda e: -e.self_device_time_total)[:6]
@@ -1168,6 +1214,7 @@ def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
                 device_ms=busy_ms / prof_stats.steps, sweep_device_ms=sweep_ms / prof_stats.steps,
                 profiled_wall_ms=prof_wall_s * 1e3 / prof_stats.steps,
                 device_kernels_per_step=sum(e.count for e in evts) / prof_stats.steps,
+                sweeps_kept=sweeps_kept,
                 top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3
                                          / prof_stats.steps for e in top})
     step["idle_share"] = 1.0 - step["device_ms"] / step["wall_ms"]
@@ -1202,13 +1249,12 @@ def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
     for route, fn in (("lanes", lanes_fn), ("warp", warp_fn)):
         sweep_t[route] = dict(kernel_device_ms=kernel_device_ms(fn, 50, "hdp_z"),
                               event_ms=cuda_time_ms(fn, 20), host_ms=host_time_ms(fn, 20))
-    live_t = HZ.live_slots(snap.fpack[:, 0].float()).to(torch.int64)
-    live_tok = live_t[tok.to(torch.int64)][msk]
     sweep_t["plain_ms"] = cuda_time_ms(
         lambda: hdp_z_ref(tok, msk, z0, u, snap.q_a, snap.fpack, snap.ipack, kk=cfg.K), 1)
     sweep_t["bound_ms"], sweep_t["bound_by"] = sweep_bound_ms(
-        SERVE_SLOTS, 128, cfg.K, cfg.V, snap.W, int(msk.sum()), False, False,
-        int(live_t.sum()), int(live_tok.sum()))
+        SERVE_SLOTS, 128, cfg.K, cfg.V, snap.W, tok[msk].to(torch.int64),
+        HZ.live_slots(snap.fpack[:, 0].float()).to(torch.int64), False, False)
+    sweep_t["words"] = int(torch.unique(tok[msk]).numel())
     sweep_t["shape"] = f"B={SERVE_SLOTS} L=128 K={cfg.K} W={snap.W} table mode"
     rates = {k: summary[k] for k in ("docs_per_s", "p50_latency_ms", "p95_latency_ms",
                                       "completed", "steps")}
@@ -1217,7 +1263,8 @@ def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
           f"{fstats['docs_per_s']} docs/s", flush=True)
     print(f"[9] (g) one engine step ({SERVE_SUBSET} requests, {steps} steps): wall "
           f"{step['wall_ms']:.3f} ms, device {step['device_ms']:.3f} ms (profiler; sweep "
-          f"{step['sweep_device_ms']:.3f} ms), idle {step['idle_share']:.1%}, "
+          f"{step['sweep_device_ms']:.3f} ms; every step's sweep kept), idle at most "
+          f"{step['idle_share']:.1%}, "
           f"{step['device_kernels_per_step']:.0f} kernels a step; split at (32, 128), "
           f"synchronized: " + ", ".join(f"{k} {v:.3f} ms" for k, v in step["split_ms"].items()),
           flush=True)
@@ -1234,7 +1281,7 @@ def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
                                    "completed", "steps")},
         "step": step, "sweep": sweep_t, "heldout_perplexity": ppl,
         "heldout_perplexity_init": ppl0, "planted_perplexity": {
-            "truth": p_truth, "untrained_init": p_init}, "snapshot": {
+            "trained": p_trained, "truth": p_truth, "untrained_init": p_init}, "snapshot": {
             "K": snap.K, "V": snap.V, "W": snap.W, "exact_w": exact_w,
             "mbytes": snap.nbytes() / 1e6, "compact_mbytes": compact.nbytes() / 1e6},
         "queries": SERVE_QUERIES, "by_bucket": by_bucket,
@@ -1420,8 +1467,8 @@ def main() -> int:
         row_bytes = int(((live_t + 3) // 4).sum()) * 4 * 2 * elem
         ms = cuda_time_ms(kern, 5)
         earlier_ms = cuda_time_ms(earlier, 3)
-        bound, by = sweep_bound_ms(d, l, cfg.K, cfg.V, w, live, in_kernel, True,
-                                   int(live_w.sum()), int(live_t.sum()), elem)
+        bound, by = sweep_bound_ms(d, l, cfg.K, cfg.V, w, tokens[mask].to(torch.int64),
+                                   live_w, in_kernel, True, elem)
         changed = int((got[0] != z)[mask].sum())
         timing[label] = dict(
             ms=ms, earlier_ms=earlier_ms, plain_ms=plain_ms, bound_ms=bound,

@@ -15,12 +15,13 @@ steps and held-out fold-in perplexity.
 
   # serve an exported snapshot against a synthetic AP-like workload:
   PYTHONPATH=src python -m repro_torch.launch.serve_hdp \\
-      --snapshot /tmp/snap --corpus ap --scale 0.01 --requests 256 --slots 32
+      --snapshot "${TMPDIR:-/tmp}"/snap --corpus ap --scale 0.01 \\
+      --requests 256 --slots 32
 
   # serve a registry's latest version, hot-swapping on publish, with a
   # 3-sample posterior ensemble:
   PYTHONPATH=src python -m repro_torch.launch.serve_hdp \\
-      --registry /tmp/hdp_reg --workers 2 --watch-registry --ensemble 3
+      --registry "${TMPDIR:-/tmp}"/hdp_reg --workers 2 --watch-registry --ensemble 3
 """
 
 from __future__ import annotations

@@ -59,11 +59,10 @@ def heldout_scores(
     seeds: torch.Tensor, base_seed: int, *, burnin: int = 16, impl: str = "cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(total log-likelihood, token count) of the prediction halves
-    under fold-in mixtures estimated from the estimation halves."""
-    est, pred = completion_split(mask)
-    theta = F.foldin_docs(snap, tokens, est, seeds, base_seed, burnin=burnin,
-                          impl=impl)
-    return _scores(snap, tokens, pred, theta)
+    under fold-in mixtures estimated from the estimation halves, on the
+    uniforms ``foldin_docs`` draws for these seeds."""
+    u0, sweeps = F.foldin_uniforms(base_seed, seeds, tokens.shape[1], burnin)
+    return heldout_scores_from_uniforms(snap, tokens, mask, u0, sweeps, impl=impl)
 
 
 def heldout_perplexity(

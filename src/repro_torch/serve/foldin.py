@@ -185,6 +185,16 @@ def foldin_from_uniforms(
     return topic_mixture_from_m(m, snap.psi, snap.alpha), z
 
 
+def foldin_uniforms(base_seed: int, seeds: torch.Tensor, length: int, burnin: int):
+    """The uniforms of a fold-in: sweep 0's (the z initialization), and
+    an iterator that draws each burn-in sweep's just before it is used,
+    so memory holds one sweep's worth."""
+    u0 = sweep_uniforms(base_seed, seeds, torch.zeros_like(seeds), length)
+    sweeps = (sweep_uniforms(base_seed, seeds, torch.full_like(seeds, s), length)
+              for s in range(1, burnin + 1))
+    return u0, sweeps
+
+
 def foldin_docs(
     snap: ModelSnapshot, tokens: torch.Tensor, mask: torch.Tensor,
     seeds: torch.Tensor, base_seed: int, *, burnin: int = 16,
@@ -193,12 +203,9 @@ def foldin_docs(
     """Fold a (D, L) batch of unseen documents into the frozen model.
 
     Returns (D, K) topic mixtures (rows on the simplex); with
-    ``return_z`` also the final assignments. The uniforms of each sweep
-    are drawn just before it, so memory holds one sweep's worth.
+    ``return_z`` also the final assignments, on the uniforms of
+    ``foldin_uniforms``.
     """
-    length = tokens.shape[1]
-    u0 = sweep_uniforms(base_seed, seeds, torch.zeros_like(seeds), length)
-    sweeps = (sweep_uniforms(base_seed, seeds, torch.full_like(seeds, s), length)
-              for s in range(1, burnin + 1))
+    u0, sweeps = foldin_uniforms(base_seed, seeds, tokens.shape[1], burnin)
     theta, z = foldin_from_uniforms(snap, tokens, mask, u0, sweeps, impl=impl)
     return (theta, z) if return_z else theta
