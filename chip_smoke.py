@@ -134,12 +134,35 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      the profiler may drop records of the small kernels), its parts, and
      the sweep at (32, 128) on both routes, with the bound of the words
      those 32 documents hold.
+ 10. the streamed trainer's sweep lanes on phase 8's 11 blocks (K=1000,
+     W=256, z as uint16): (a) ``launch/train.py --stream --devices 4``
+     (the main path, its hdp_z launches zeroed just before and read just
+     after, all on the route ``hdp_z.route`` gives 2,048 documents) and 2
+     lanes, and 4 lanes on the disk store with int32 slabs, each bitwise
+     the one-lane chain over 3 iterations from phase 8's starting state
+     (every z block, n, phi, varphi, psi, l, the generator); (b) in
+     iteration 2's first block each lane's ``delta_sparsify`` and the
+     ``deltawire`` round trip equal its dense delta, the merged delta the
+     one-lane block's dn, the lanes' dh and z the block's; (c) a 4-lane
+     iteration stopped after 5 blocks, restored and finished, bitwise;
+     (d) 10 iterations with ``--metrics`` and ``--trace`` bitwise the
+     silent chain, the JSONL carrying K*, delta sparsity, the
+     log-likelihood, its ESS and each lane's ``train.phase_ms``, the
+     trace ``sweep.d0..d3`` on 4 thread tracks overlapping in wall time,
+     and ``launch/monitor.py`` rendering the file; (e) s/iter with 1, 2
+     and 4 sweep lanes and their serialized split, the lanes' sweeps on
+     the device (profiler), and the busy time of each thread of one
+     traced streamed iteration on the corpus tiled 10x; (f) a 2-worker
+     fleet with trace and metrics on: mixtures bitwise phase 9's engine,
+     ``serve.latency_ms`` counting every request, every async span
+     paired.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import re
 import subprocess
@@ -169,6 +192,8 @@ from repro_torch.core.streaming import StreamingHDP  # noqa: E402
 from repro_torch.data.corpus import Corpus  # noqa: E402
 from repro_torch.data.stream import ShardedCorpusStore  # noqa: E402
 from repro_torch.data.synthetic import paper_corpus, planted_topics_corpus  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.data import deltawire as DW  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -180,6 +205,7 @@ from repro_torch.kernels.hdp_z.ref import (  # noqa: E402
 from repro_torch.kernels.ssd import ssd as SSD  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
     decay_to_end, segsum, ssd_intra_chunk_ref)
+from repro_torch.launch import monitor as MON  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 from repro_torch.models.lm import CausalLM  # noqa: E402
@@ -244,6 +270,16 @@ SERVE_LIVE_QUERIES = 256
 # (a): the kernel at the serving shapes
 SERVE_DS = (1, 8, 32, 33)
 SERVE_LS = (32, 64, 128, 256)
+
+# the streamed trainer's sweep lanes (phase 10): the lane counts on the
+# one card, the main path's (through launch/train.py), the iterations of
+# (a) and of (d), with metrics and trace on (the convergence diagnostics
+# publish ESS once they hold 8 samples), and where (c) stops
+LANE_COUNTS = (1, 2, 4)
+MAIN_LANES = 4
+LANE_ITERS = 3
+OBS_ITERS = 10
+LANE_STOP_BLOCKS = 5
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -1286,6 +1322,345 @@ def serve_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int):
             "mbytes": snap.nbytes() / 1e6, "compact_mbytes": compact.nbytes() / 1e6},
         "queries": SERVE_QUERIES, "by_bucket": by_bucket,
         "slots": SERVE_SLOTS, "burnin": SERVE_BURNIN}
+    # for phase 10 (f): the snapshot, the queries and the engine's mixtures
+    out.update(snap=snap, docs=docs, mixtures=served)
+    return out
+
+
+def lane_argv(lanes: int, iters: int, *extra: str) -> list[str]:
+    """``launch/train.py``'s arguments for the streamed lane path on phase
+    3's corpus (the same seed, scale, K, W and length)."""
+    return ["--hdp", "pubmed", "--scale", "0.01", "--iters", str(iters),
+            "--topics", "1000", "--max-len", "256", "--bucket", "256",
+            "--seed", "0", "--log-every", str(iters), "--stream",
+            "--block-docs", str(STREAM_BLOCK_DOCS), "--devices", str(lanes), *extra]
+
+
+def check_same_chain(a, b, tag: str) -> None:
+    """check_streams_equal and the generators' states."""
+    check_streams_equal(a, b, tag)
+    check(torch.equal(a.gen.get_state(), b.gen.get_state()), f"{tag}: generator differs")
+
+
+def launches_since(before: dict) -> dict:
+    return {r: hdp_z_cuda.launches_by_route[r] - before[r] for r in HZ.ROUTES}
+
+
+def thread_busy(events) -> dict:
+    """Busy seconds a thread track from a Chrome trace: the union of its
+    spans (the driver's ``stage_wait``, a wait, left out) and each span
+    name's sum."""
+    names = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    tracks: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            tracks.setdefault(names.get(e["tid"], str(e["tid"])), []).append(e)
+    out = {}
+    for track, evs in tracks.items():
+        busy, end = 0.0, float("-inf")
+        for t0, t1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in evs
+                             if e["name"] != "stage_wait"):
+            if t1 > end:
+                busy += t1 - max(t0, end)
+                end = t1
+        by_span: dict = {}
+        for e in evs:
+            by_span[e["name"]] = by_span.get(e["name"], 0.0) + e["dur"] / 1e6
+        out[track] = {"busy_s": busy / 1e6, "by_span_s": by_span}
+    return out
+
+
+def overlapping_pairs(a, b) -> int:
+    """Pairs of (start, end) intervals, one from each list, that overlap."""
+    return sum(1 for s0, e0 in a for s1, e1 in b if s0 < e1 and s1 < e0)
+
+
+def lanes_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int,
+                snap, docs: list, served: dict):
+    """Phase 10, the streamed trainer's sweep lanes on the card, on phase
+    8's 11 blocks of the PubMed 0.01 replica (K=1000, W=256, z as uint16):
+    (a) 2 and 4 sweep lanes (4 through ``launch/train.py --devices 4``,
+    the main path, its launches counted) bitwise the one-lane chain over 3
+    iterations from phase 8's starting state, also on the disk store with
+    int32 slabs; (b) each lane's ``delta_sparsify`` and the ``deltawire``
+    round trip equal its dense delta, the merge the one-lane block's; (c)
+    a lane-mode iteration stopped after 5 blocks, restored and finished;
+    (d) 10 iterations with ``--metrics`` and ``--trace`` bitwise the
+    silent chain, the metrics, the lanes' spans and the monitor; (e)
+    s/iter for 1, 2 and 4 lanes, the thread split of a streamed iteration
+    on the tiled corpus, and the lanes' sweeps on the device; (f) HDP
+    serving with trace and metrics on. Returns the numbers for the
+    kernels line."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {}
+    store = ShardedCorpusStore.from_corpus(corpus, STREAM_BLOCK_DOCS)
+    one = StreamingHDP(cfg, store, device=dev)
+    ref = one.init_state(seed)
+    refs = []
+    for _ in range(LANE_ITERS):
+        ref = one.iteration(ref)
+        refs.append({f: getattr(ref, f).clone() for f in ("n", "psi", "l")})
+    z_ref = ref.z_blocks.materialize().copy()
+
+    # (a) the main path: launch/train.py --stream --devices 4, counts zeroed
+    # just before and read just after
+    torch.cuda.synchronize()
+    hdp_z_cuda.launches = 0
+    hdp_z_cuda.launches_by_route.update(dict.fromkeys(HZ.ROUTES, 0))
+    st_main, _, summary = T.main(lane_argv(MAIN_LANES, LANE_ITERS))
+    torch.cuda.synchronize()
+    out["launches"] = hdp_z_cuda.launches
+    out["launches_by_route"] = dict(hdp_z_cuda.launches_by_route)
+    want = LANE_ITERS * store.num_blocks * MAIN_LANES
+    lane_route = HZ.route(cfg.K, store.max_len, True, HZ.smem_limit(dev))
+    check(out["launches_by_route"] == {**dict.fromkeys(HZ.ROUTES, 0), lane_route: want},
+          f"(a) main path: launches by route {out['launches_by_route']}, expected "
+          f"{want} on {lane_route}")
+    check(summary["sweep_lanes"] == MAIN_LANES and summary["blocks"] == store.num_blocks,
+          f"(a) main path summary {summary}")
+    check_same_chain(ref, st_main, f"(a) {MAIN_LANES} sweep lanes (launch/train.py)")
+    check(np.array_equal(st_main.z_blocks.materialize(), z_ref), "(a) z differs")
+    out["delta_reduce_mb_per_iter"] = summary["delta_reduce_mb"] / LANE_ITERS
+    print(f"[10] (a) launch/train.py --stream --devices {MAIN_LANES}: {LANE_ITERS} "
+          f"iterations on {store.num_blocks} blocks x {store.block_docs} documents "
+          f"({store.block_docs // MAIN_LANES} a sweep lane, a CUDA stream each on the one "
+          f"card) == the one-lane chain bitwise (every z block, n, phi, varphi, psi, l, "
+          f"generator); hdp_z launches by route {out['launches_by_route']} (route() at "
+          f"{store.block_docs // MAIN_LANES} documents: {lane_route}); "
+          f"{summary['sec_per_iter']:.4f} s/iter; delta_reduce "
+          f"{out['delta_reduce_mb_per_iter']:.3f} MB/iter", flush=True)
+    del st_main
+    for lanes, kw in ((2, {}), (MAIN_LANES, {"z_store": "disk", "z_pack": "off"})):
+        before = dict(hdp_z_cuda.launches_by_route)
+        drv = StreamingHDP(cfg, store, device=dev, n_lanes=lanes, **kw)
+        st = streamed_chain(drv, LANE_ITERS, seed)
+        torch.cuda.synchronize()
+        tag = f"(a) {lanes} sweep lanes {kw or ''}".strip()
+        check_same_chain(ref, st, tag)
+        print(f"[10] {tag} == the one-lane chain bitwise over {LANE_ITERS} iterations (z "
+              f"as {st.z_blocks.dtype} in {st.z_blocks.kind}); hdp_z launches by route "
+              f"{launches_since(before)}; delta_reduce "
+              f"{drv.delta_reduce_bytes / 2**20 / LANE_ITERS:.3f} MB/iter", flush=True)
+        del st, drv
+
+    # (b) iteration 2's first block: each lane's nonzeros and the packed
+    # exchange against the dense deltas and the one-lane block
+    st1 = one.iteration(one.init_state(seed))
+    gen = torch.Generator(device=dev)
+    gen.set_state(st1.gen.get_state())
+    _, _, ztables = one._phi_tables(gen, st1.n, st1.varphi, st1.psi)
+    u = one._uniforms(gen)
+    _, tokens, mask, z = one._take(one._to_device(one._host_z(one._host_block(0),
+                                                              st1.z_blocks)))
+    z_whole, dn_whole, dh_whole = SH.z_block(cfg, ztables, z, tokens, mask, st1.psi, u,
+                                             in_kernel=one.in_kernel)
+    rows = store.block_docs // MAIN_LANES
+    cap = min(2 * rows * store.max_len, cfg.K * cfg.V)
+    packs, dh_sum, nnzs = [], torch.zeros_like(dh_whole), []
+    for d in range(MAIN_LANES):
+        sl = slice(d * rows, (d + 1) * rows)
+        z_d, dn_d, dh_d = SH.z_lane(cfg, ztables, z[sl], tokens[sl], mask[sl], st1.psi, u,
+                                    n_lanes=MAIN_LANES, lane=d, in_kernel=one.in_kernel)
+        idx, val, nnz = zops.delta_sparsify(dn_d, cap)
+        pack = DW.pack_coo(idx[:nnz].cpu().numpy(), val[:nnz].cpu().numpy(), (cfg.K, cfg.V))
+        check(np.array_equal(DW.unpack_delta(pack), dn_d.cpu().numpy()),
+              f"(b) lane {d}: the packed nonzeros are not its dense delta")
+        check(torch.equal(z_d, z_whole[sl]), f"(b) lane {d}: z differs from the block's")
+        packs.append(pack)
+        dh_sum += dh_d
+        nnzs.append(nnz)
+    merged = DW.reduce_packed(packs, shape=(cfg.K, cfg.V))
+    check(np.array_equal(merged, dn_whole.cpu().numpy()),
+          "(b) the merged delta is not the one-lane block's")
+    check(torch.equal(dh_sum, dh_whole), "(b) the lanes' histograms do not sum to the block's")
+    out["block_exchange"] = {"lane_nnz": nnzs, "packed_bytes": DW.packed_nbytes(packs),
+                             "dense_bytes": MAIN_LANES * cfg.K * cfg.V * 4,
+                             "kinds": [p.kind for p in packs]}
+    print(f"[10] (b) iteration 2, block 0, {MAIN_LANES} lanes: delta_sparsify + deltawire "
+          f"round trip == each lane's dense dn (nonzeros {nnzs}, packed as "
+          f"{[p.kind for p in packs]}, {DW.packed_nbytes(packs)} B against "
+          f"{MAIN_LANES * cfg.K * cfg.V * 4} B dense), merged == the one-lane block's dn, "
+          f"lanes' dh sum == its dh, lanes' z == its z", flush=True)
+    del z_whole, dn_whole, dh_whole, ztables, u, tokens, mask, z
+
+    # (c) a lane-mode iteration stopped mid-way, restored and finished
+    drv = StreamingHDP(cfg, store, device=dev, n_lanes=MAIN_LANES)
+    st = drv.iteration(drv.init_state(seed))
+    with tempfile.TemporaryDirectory() as d:
+        check(drv.iteration(st, ckpt_dir=d, stop_after_blocks=LANE_STOP_BLOCKS) is None,
+              "(c) the stopped iteration returned a state")
+        st, kw = drv.restore(d)
+        check(kw.get("start_block") == LANE_STOP_BLOCKS and st.it == 1,
+              f"(c) restored at iteration {st.it}, cursor {kw.get('start_block')}")
+        st = drv.iteration(st, **kw)
+    check(all(torch.equal(getattr(st, f), refs[1][f]) for f in ("n", "psi", "l")),
+          "(c) the resumed iteration differs from the uninterrupted one")
+    st = drv.iteration(st)
+    check_same_chain(ref, st, "(c) stopped, resumed, then one more iteration")
+    print(f"[10] (c) {MAIN_LANES} lanes: iteration 2 stopped after {LANE_STOP_BLOCKS} blocks "
+          f"(the reducer flushed before the save), restored, finished == the uninterrupted "
+          f"iteration (n, psi, l), and iteration 3 after it == the one-lane chain bitwise",
+          flush=True)
+    del st, drv, st1, ref
+    torch.cuda.empty_cache()
+
+    # (d) metrics and trace on, through the CLI, against the silent chain
+    silent = streamed_chain(one, OBS_ITERS, seed)
+    with tempfile.TemporaryDirectory() as d:
+        mpath, tpath = f"{d}/metrics.jsonl", f"{d}/trace.json"
+        st, _, _ = T.main(lane_argv(MAIN_LANES, OBS_ITERS, "--metrics", mpath,
+                                    "--trace", tpath))
+        check_same_chain(silent, st, f"(d) {MAIN_LANES} lanes, metrics and trace on")
+        last = json.loads(open(mpath).read().splitlines()[-1])
+        got = {(m["name"], m["labels"].get("proc")): m for m in last["metrics"]}
+        for name in ("train.k_star", "train.delta_nnz_frac", "train.log_lik",
+                     "train.ess_log_lik", "train.delta_reduce_mb"):
+            check((name, None) in got, f"(d) the metrics file lacks {name}")
+        for lane in range(MAIN_LANES):
+            check(("train.phase_ms", f"d{lane}") in got,
+                  f"(d) the metrics file lacks train.phase_ms{{proc=d{lane}}}")
+        events = json.load(open(tpath))["traceEvents"]
+        spans = {lane: [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+                        if e["ph"] == "X" and e["name"] == f"sweep.d{lane}"]
+                 for lane in range(MAIN_LANES)}
+        # each iteration starts its lanes' threads anew: a lane's spans lie on
+        # tracks of its own name, no track shared with another lane
+        names = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+        tids = [{t for *_, t in spans[lane]} for lane in range(MAIN_LANES)]
+        check(all(names.get(t) == f"sweep.d{lane}" for lane in range(MAIN_LANES)
+                  for t in tids[lane])
+              and sum(map(len, tids)) == len(set().union(*tids)),
+              f"(d) the lanes' spans are not on distinct tracks of their own: {tids}")
+        check(all(len(spans[lane]) == OBS_ITERS * store.num_blocks
+                  for lane in range(MAIN_LANES)), "(d) a lane's span count is off")
+        overlaps = [overlapping_pairs([x[:2] for x in spans[0]], [x[:2] for x in spans[lane]])
+                    for lane in range(1, MAIN_LANES)]
+        check(all(overlaps), f"(d) sweep.d0 overlaps no span of some lane: {overlaps}")
+        buf = io.StringIO()
+        MON.render(MON.load(mpath), out=buf)
+        check("train.k_star" in buf.getvalue(), "(d) the monitor did not render the file")
+        out["metrics"] = {k: got[(k, None)]["value"] for k in (
+            "train.k_star", "train.delta_nnz_frac", "train.log_lik", "train.ess_log_lik",
+            "train.delta_reduce_mb")}
+    print(f"[10] (d) {OBS_ITERS} iterations with --metrics and --trace == the silent chain "
+          f"bitwise; metrics {out['metrics']}, train.phase_ms{{proc=d0..d{MAIN_LANES - 1}}} "
+          f"present; sweep.d0..d{MAIN_LANES - 1} on tracks of their own ({len(tids[0])} a lane), d0 "
+          f"overlapping the others in {overlaps} span pairs; launch/monitor.py rendered the "
+          f"file ({len(buf.getvalue().splitlines())} lines)", flush=True)
+    del st, silent
+    torch.cuda.empty_cache()
+
+    # (e) s/iter by lane count, and the serialized split, in one call
+    times = {}
+    for lanes in LANE_COUNTS:
+        drv = StreamingHDP(cfg, store, device=dev, n_lanes=lanes)
+        st = drv.iteration(drv.init_state(seed))  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LANE_ITERS):
+            st = drv.iteration(st)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / LANE_ITERS
+        st, timers = drv.iteration_profiled(st)
+        times[lanes] = {"sec_per_iter": sec, "profiled_sec": timers.total,
+                        "phase_sec": timers.totals,
+                        "delta_reduce_mb_per_iter": drv.delta_reduce_bytes / 2**20
+                        / (LANE_ITERS + 2) if lanes > 1 else 0.0}
+        print(f"[10] (e) {lanes} sweep lane(s): {sec:.4f} s/iter ({LANE_ITERS} iterations "
+              f"after a warm one); serialized {timers.total:.4f} s: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in timers.totals.items()), flush=True)
+        if lanes == MAIN_LANES:
+            # the lanes' sweeps on the device: kernels on distinct streams
+            with tempfile.TemporaryDirectory() as d:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    st = drv.iteration(st)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(f"{d}/lanes.json")
+                kern = [e for e in json.load(open(f"{d}/lanes.json"))["traceEvents"]
+                        if e.get("ph") == "X" and "hdp_z" in e.get("name", "")]
+            by_stream: dict = {}
+            for e in kern:
+                by_stream.setdefault(e.get("args", {}).get("stream", e.get("tid")), []).append(
+                    (e["ts"], e["ts"] + e["dur"]))
+            keys = sorted(by_stream, key=str)
+            pairs = sum(overlapping_pairs(by_stream[a], by_stream[b])
+                        for i, a in enumerate(keys) for b in keys[i + 1:])
+            times["device_overlap"] = {"sweeps_recorded": len(kern), "streams": len(keys),
+                                       "overlapping_pairs": pairs}
+            print(f"[10] (e) profiler, one {lanes}-lane iteration: {len(kern)} of "
+                  f"{lanes * store.num_blocks} sweeps recorded on {len(keys)} streams, "
+                  f"{pairs} pair(s) of sweeps on different streams overlapping on the device"
+                  if kern else "[10] (e) profiler: no sweep kernel recorded (not shown)",
+                  flush=True)
+        del st, drv
+    out["sec_per_iter"] = times
+    # the threads of one streamed iteration on the tiled corpus (one lane)
+    tiled = Corpus(np.tile(corpus.tokens, (STREAM_TILES, 1)),
+                   np.tile(corpus.mask, (STREAM_TILES, 1)), corpus.V)
+    big = StreamingHDP(cfg, ShardedCorpusStore.from_corpus(tiled, STREAM_BLOCK_DOCS),
+                       device=dev)
+    st = big.iteration(big.init_state(seed))  # warm
+    tr = obs.enable_tracing()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = big.iteration(st)
+    torch.cuda.synchronize()
+    overlapped = time.perf_counter() - t0
+    events = tr.events()
+    tr.stop()
+    busy = thread_busy(events)
+    out["tiled_threads"] = {"overlapped_sec": overlapped, "blocks": big.store.num_blocks,
+                            "threads": busy}
+    print(f"[10] (e) one streamed iteration, corpus tiled {STREAM_TILES}x "
+          f"({big.store.num_blocks} blocks, 1 lane), traced: {overlapped:.4f} s overlapped; "
+          f"busy by thread: " + "; ".join(
+              f"{t} {v['busy_s']:.4f} s (" + ", ".join(
+                  f"{k} {x:.4f}" for k, x in v["by_span_s"].items()) + ")"
+              for t, v in busy.items()), flush=True)
+    del st, big, tiled
+    torch.cuda.empty_cache()
+
+    # (f) HDP serving with trace and metrics on; the registry holds phase
+    # 9's observations too, so the latencies are counted from here
+    sub = list(range(SERVE_SUBSET))
+
+    def latencies():
+        hists = [obs.metrics().get("serve.latency_ms", bucket=b) for b in SERVE_BUCKETS]
+        return sum(h.count for h in hists if h is not None)
+
+    lat0 = latencies()
+    with tempfile.TemporaryDirectory() as d:
+        obs.setup(trace=f"{d}/serve.json", metrics_path=f"{d}/serve.jsonl")
+        try:
+            with ServeFleet(snap, workers=2, slots=SERVE_SLOTS, burnin=SERVE_BURNIN,
+                            buckets=SERVE_BUCKETS, base_seed=SERVE_BASE_SEED,
+                            slo_ms=60_000.0, device=dev) as fleet:
+                for rid in sub:
+                    fleet.submit(docs[rid], seed=rid)
+                observed = fleet.run(timeout=600)
+                fstats = fleet.stats_summary()
+            lat = latencies() - lat0
+        finally:
+            obs.finalize()
+        events = json.load(open(f"{d}/serve.json"))["traceEvents"]
+    check_mixtures(observed, {rid: served[rid] for rid in sub},
+                   "(f) the fleet with trace and metrics on against the silent engine")
+    check(lat == len(sub) == fstats["completed"],
+          f"(f) serve.latency_ms counts {lat} for {len(sub)} requests")
+    key = lambda e: (e["name"], e["cat"], e["id"])  # noqa: E731
+    begins = sorted(key(e) for e in events if e["ph"] == "b")
+    ends = sorted(key(e) for e in events if e["ph"] == "e")
+    check(begins == ends and len(begins) == 3 * len(sub),
+          f"(f) async spans: {len(begins)} begins, {len(ends)} ends, paired "
+          f"{begins == ends}, expected 3 a request")
+    print(f"[10] (f) 2-worker fleet, {len(sub)} requests, trace and metrics on: mixtures "
+          f"== the silent engine's bitwise; serve.latency_ms count {lat}; {len(begins)} "
+          f"async spans (request, request.queued, request.inflight), every one paired; "
+          f"slo_ok {fstats['slo_ok']}", flush=True)
+    print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
 
@@ -1713,6 +2088,10 @@ def main() -> int:
     # ---- 9. HDP serving ------------------------------------------------------
     served = serve_phase(corpus, cfg, dev, seed=0)
 
+    # ---- 10. the streamed trainer's sweep lanes ---------------------------------
+    laned = lanes_phase(corpus, cfg, dev, 0, served.pop("snap"), served.pop("docs"),
+                        served.pop("mixtures"))
+
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
@@ -1725,6 +2104,9 @@ def main() -> int:
         # the serving engine's sweeps (phase 9 (c))
         "launches_served": served["launches"],
         "launches_served_by_route": served["launches_by_route"],
+        # the streamed trainer's 4 sweep lanes through launch/train.py (phase 10 (a))
+        "launches_lanes": laned["launches"],
+        "launches_lanes_by_route": laned["launches_by_route"],
         "max_abs_err": worst,
         "ms": main["ms"], "earlier_ms": main["earlier_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1758,7 +2140,10 @@ def main() -> int:
         "decode_tok_s_per_batch", "warmup_batches")},
         "spread": spread},
         "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale},
-        "stream_tiled": streamed["tiled"], "serve_hdp": served["serve_hdp"]}),
+        "stream_tiled": streamed["tiled"], "serve_hdp": served["serve_hdp"],
+        "stream_lanes": {k: laned[k] for k in (
+            "sec_per_iter", "delta_reduce_mb_per_iter", "block_exchange", "metrics",
+            "tiled_threads")}}),
         flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

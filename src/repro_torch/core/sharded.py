@@ -12,7 +12,9 @@ psum-scatter) are identities here.
     (``ShardedHDP._z_sweep_u``);
   * ``block_stats``: the block's integer delta to n and its histogram dh
     (``ShardedHDP._block_stats``);
-  * ``z_block``: the two together (``ShardedHDP.z_block_fn``).
+  * ``z_block``: the two together (``ShardedHDP.z_block_fn``);
+  * ``z_lane``: one sweep lane's rows of a block
+    (``ShardedHDP.z_lane_fn``), for the streamed trainer's lane mode.
 
 The operands ``phi_tables`` returns depend on the z-step: ``(phi,)`` for
 ``dense``; for ``cuda`` either the supports ``(apsi, vals, ids)``, which
@@ -100,3 +102,27 @@ def z_block(cfg: H.HDPConfig, ztables, z, tokens, mask, psi, u, *,
                              in_kernel=in_kernel)
     dn, dh = block_stats(cfg, z, z_new, m, tokens, mask, dn)
     return z_new, dn, dh
+
+
+def z_lane(cfg: H.HDPConfig, ztables, z, tokens, mask, psi, u_block, *,
+           n_lanes: int, lane: int, in_kernel: bool):
+    """One sweep lane of a block: ``(z_rows', dn_full, dh)`` over the
+    lane's ``block_docs // n_lanes`` document rows (``z``, ``tokens`` and
+    ``mask`` are those rows, on the lane's device).
+
+    ``u_block`` is the whole block's ``(block_docs, L, 3)`` draw, made once
+    on the driver thread; the lane takes rows ``[lane * rows, (lane + 1) *
+    rows)`` of it, as the reference's lane slices the block-global draw
+    from ``fold_in(k_ub, 0)``, so every lane count sweeps each token with
+    the same uniforms. ``dn_full`` is the lane's whole (K, V) delta and
+    ``dh`` its histogram: lanes merge by integer addition."""
+    block_docs = u_block.shape[0]
+    if block_docs % n_lanes:
+        raise ValueError(f"block_docs={block_docs} not divisible by "
+                         f"n_lanes={n_lanes}")
+    rows = block_docs // n_lanes
+    if not 0 <= lane < n_lanes or z.shape[0] != rows:
+        raise ValueError(f"lane {lane} of {n_lanes} takes {rows} rows, "
+                         f"got {z.shape[0]}")
+    u = u_block[lane * rows:(lane + 1) * rows].to(z.device, non_blocking=True)
+    return z_block(cfg, ztables, z, tokens, mask, psi, u, in_kernel=in_kernel)

@@ -45,6 +45,30 @@ checkpoint stores the generator's state at the iteration's start (to
 redraw Phi and the tables) and at the cursor (to draw blocks cursor..
 onward).
 
+Sweep lanes (``n_lanes > 1``, the reference's lane mode, its
+``n_devices``): each block's document rows split evenly over the lanes,
+lane d on ``devices[d % len(devices)]`` (by default the trainer's one
+device), each a thread (``_SweepLane``) with its own CUDA stream. The
+driver still draws the block's whole ``(DB, L, 3)`` uniforms, and lane d
+sweeps its rows with rows ``[d * DB / N, (d + 1) * DB / N)`` of that draw
+(``sharded.z_lane``), so N lanes are bitwise one lane and the monolithic
+chain. Each lane extracts its delta's nonzeros (``delta_sparsify``), and
+a reducer thread (an ``AsyncStage``) merges the lanes in ascending order
+through the packed exchange of ``data/deltawire.py`` (the single-host
+prototype of the wire protocol) and advances n and dh by one add each.
+
+Observability (``repro_torch.obs``): the pipeline's stages are spans on
+the tracer, one track per thread (``tables.build``, ``stage_wait``,
+``sweep``, ``sweep_submit``, ``wb_submit``, ``checkpoint``, ``tail`` on
+the driver; ``corpus_read`` and ``z_read`` on the prefetch thread,
+``h2d`` on the stage thread, ``sweep.d{d}`` on each lane,
+``delta_reduce`` on the reducer, ``writeback``); each iteration
+publishes counters and gauges into the registry (``_publish_health``).
+The reductions that only feed metrics (K*, delta sparsity, the
+convergence diagnostics) run only with a sink attached
+(``obs.metrics_on()``); they read the state and draw nothing, so an
+observed chain is bitwise a silent one.
+
 Checkpoints share storage with the live state: a save flushes dirty z
 slabs into per-block version files (``ZBlockStore``) and pins the
 version vector in the payload; for a disk store homed at the checkpoint
@@ -53,20 +77,27 @@ directory the live files are the checkpoint files.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import queue
+import threading
+import time
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import hdp as H
 from repro_torch.core import sharded as SH
 from repro_torch.core.polya_urn import ppu_sample, ppu_sample_budgeted
 from repro_torch.core.stick import gem_prior_sample, sample_l, sample_psi
-from repro_torch.data.stream import (BlockPrefetcher, BlockWriteback,
-                                     ShardedCorpusStore)
+from repro_torch.data import deltawire as DW
+from repro_torch.data.stream import (AsyncStage, BlockPrefetcher,
+                                     BlockWriteback, ShardedCorpusStore)
 from repro_torch.data.zstore import (ZBlockStore, ZSlabStore,
                                      make_zslab_store, pack_dtype_for)
 from repro_torch.device import resolve_device
+from repro_torch.kernels.hdp_z import ops as zops
+from repro_torch.obs.diagnostics import NULL_CLOCK, PhaseClock
 from repro_torch.perf import PhaseTimers
 from repro_torch.train import checkpoint as CKPT
 
@@ -76,6 +107,95 @@ from repro_torch.train import checkpoint as CKPT
 _TRANSPORT = {np.dtype(np.uint8): (np.uint8, torch.uint8),
               np.dtype(np.uint16): (np.int16, torch.int16),
               np.dtype(np.int32): (np.int32, torch.int32)}
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its index ("cuda" is the current card), so devices
+    compare equal to a tensor's ``.device``."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class _SweepLane:
+    """One sweep lane of the streamed trainer's lane mode (counterpart of
+    the reference's ``_SweepLane``): a daemon thread that runs
+    ``sweep(lane, work)`` for each submitted block, on its own CUDA stream
+    of its device, and waits for the stream before it hands the result
+    on. The thread puts each lane's ``sweep.d{d}`` span on a track of its
+    own, and the wait inside the span makes it measure the lane's device
+    work, not its dispatch.
+
+    The bounded input queue (depth 2) holds the driver back, so at most
+    two blocks' rows are in flight a lane. Errors are re-raised on the
+    consumer's side (``take``); after one, further submissions drain
+    unprocessed.
+    """
+
+    _DONE = object()
+
+    def __init__(self, d: int, device: torch.device, sweep):
+        self.d = d
+        self.device = device
+        self.wall_s = 0.0   # the lane's summed sweep wall time
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self._sweep = sweep
+        self._in: queue.Queue = queue.Queue(maxsize=2)
+        self._out: queue.Queue = queue.Queue()
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name=f"sweep.d{d}")
+        self._thread.start()
+
+    def submit(self, b: int, work):
+        self._in.put((b, work))
+
+    def take(self, b: int):
+        """Block b's result; re-raises the lane's error if it failed."""
+        got = self._out.get()
+        if got[0] == "err":
+            raise got[1]
+        _, rb, payload = got
+        if rb != b:
+            raise RuntimeError(f"sweep lane d{self.d} produced block {rb}, "
+                               f"expected {b}")
+        return payload
+
+    def _run(self, work):
+        if self.stream is None:
+            return self._sweep(self, work)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            out = self._sweep(self, work)
+            self.stream.synchronize()
+        return out
+
+    def _worker(self):
+        tr = obs.tracer()
+        while True:
+            item = self._in.get()
+            if item is self._DONE:
+                return
+            if self._err is not None:
+                continue  # drain the submissions after an error
+            b, work = item
+            try:
+                t0 = time.perf_counter()
+                with tr.span(f"sweep.d{self.d}", cat="pipeline", block=b):
+                    payload = self._run(work)
+                self.wall_s += time.perf_counter() - t0
+                self._out.put(("ok", b, payload))
+            except BaseException as e:  # surfaced on take()
+                self._err = e
+                self._out.put(("err", e))
+
+    def close(self):
+        if self._thread.is_alive():
+            self._in.put(self._DONE)
+            self._thread.join(timeout=600)
+            if self._thread.is_alive():
+                raise RuntimeError(f"sweep lane d{self.d} failed to drain "
+                                   "within 600 s (wedged device?)")
 
 
 class StreamingState(NamedTuple):
@@ -119,13 +239,21 @@ class StreamingHDP:
     ``block_sparse_tables`` "on", "off" or "auto" (on below 50% vocabulary
     coverage where the z-step has per-word tables); "on" where it has
     none raises.
+
+    ``n_lanes`` > 1 splits each block's rows over that many sweep lanes
+    (the module docstring), lane d on ``devices[d % len(devices)]``
+    (default ``[device]``: every lane on the one card, a stream each);
+    ``block_docs`` must divide evenly. Every lane count gives bitwise the
+    same chain.
     """
 
     def __init__(self, cfg: H.HDPConfig, store: ShardedCorpusStore, *,
                  device: torch.device | str = "cuda",
                  prefetch_depth: int = 2, writeback_depth: int = 2,
                  z_store: str = "ram", z_dir: Optional[str] = None,
-                 z_pack: str = "auto", block_sparse_tables: str = "auto"):
+                 z_pack: str = "auto", block_sparse_tables: str = "auto",
+                 n_lanes: int = 1,
+                 devices: Optional[Sequence[torch.device | str]] = None):
         H.validate_bucket(cfg, store.max_len)
         self.cfg = cfg
         self.store = store
@@ -158,14 +286,38 @@ class StreamingHDP:
             u_mask = np.zeros((cfg.V,), bool)
             u_mask[store.vocab_ids()] = True
             self._u_mask = torch.from_numpy(u_mask).to(self.device)
+        if n_lanes < 1:
+            raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
+        if store.block_docs % n_lanes:
+            raise ValueError(f"block_docs={store.block_docs} must divide evenly "
+                             f"over n_lanes={n_lanes} sweep lanes")
+        devices = [self.device] if devices is None else [
+            resolve_device(d) for d in devices]
+        if not devices or any(d.type != self.device.type for d in devices):
+            raise ValueError(f"sweep lanes run on {self.device.type} devices "
+                             f"like the trainer, got {devices}")
+        self.n_lanes = n_lanes
+        self.lane_devices = [_indexed(devices[d % len(devices)])
+                             for d in range(n_lanes)]
+        self._lane_rows = store.block_docs // n_lanes
+        # a lane's delta changes at most two cells a token it resamples
+        self._nnz_cap = int(min(2 * self._lane_rows * store.max_len,
+                                cfg.K * cfg.V))
+        self.delta_reduce_bytes = 0  # the packed exchange's bytes, in all
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             self._h2d_stream = torch.cuda.Stream(self.device)
-            self._d2h_stream = torch.cuda.Stream(self.device)
+            # a D2H stream on each device a swept z block can lie on
+            self._d2h_streams = {
+                dev: torch.cuda.Stream(dev)
+                for dev in {_indexed(self.device), *self.lane_devices}}
             self._pinned: list[_HostBlock] = []
             self._next_pinned = 0
         # checkpoint stores of save dirs that are not a disk slab store's home
         self._zstores: dict[str, ZBlockStore] = {}
+        # the convergence diagnostics, built on the first iteration that
+        # runs with a metrics sink attached
+        self._diag = None
 
     # -- tables, slabs ----------------------------------------------------
     def _phi_tables(self, gen, n, varphi, psi):
@@ -292,12 +444,18 @@ class StreamingHDP:
         if event is None:
             host = zw
         else:
-            with torch.cuda.device(self.device), torch.cuda.stream(self._d2h_stream):
-                self._d2h_stream.wait_event(event)
+            stream = self._d2h_streams[zw.device]
+            with torch.cuda.device(zw.device), torch.cuda.stream(stream):
+                stream.wait_event(event)
                 host = torch.empty(zw.shape, dtype=zw.dtype, pin_memory=True)
                 host.copy_(zw, non_blocking=True)
-                self._d2h_stream.synchronize()
+                stream.synchronize()
         return host.numpy().view(self.z_dtype)
+
+    def _lanes_to_host(self, parts) -> np.ndarray:
+        """The sweep lanes' narrowed z rows, in lane order, as one host
+        slab. Runs on the write-back thread."""
+        return np.concatenate([self._to_host(p) for p in parts], axis=0)
 
     def _staged_blocks(self, z_store: ZSlabStore, start: int):
         """The two-stage prefetch pipeline from block ``start``: the pre
@@ -307,9 +465,17 @@ class StreamingHDP:
         budget of ``prefetch_depth`` blocks in flight."""
 
         def read(b):
-            return self._host_z(self._host_block(b), z_store)
+            tr = obs.tracer()
+            with tr.span("corpus_read", cat="pipeline", block=b):
+                host = self._host_block(b)
+            with tr.span("z_read", cat="pipeline", block=b):
+                return self._host_z(host, z_store)
 
-        return BlockPrefetcher(range(start, self.store.num_blocks), self._to_device,
+        def stage(host):
+            with obs.tracer().span("h2d", cat="pipeline", block=host.index):
+                return self._to_device(host)
+
+        return BlockPrefetcher(range(start, self.store.num_blocks), stage,
                                depth=self.prefetch_depth, pre=read)
 
     def _uniforms(self, gen):
@@ -320,6 +486,71 @@ class StreamingHDP:
     def _zero_dh(self):
         return torch.zeros((self.cfg.K, self.cfg.hist_cap + 1), dtype=torch.int32,
                            device=self.device)
+
+    def _ready_event(self):
+        """An event after the driver's queued work on the current stream
+        (the staged block, its widened z, its uniforms and the tables),
+        which the sweep lanes wait on; None on the CPU."""
+        if not self._cuda:
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _lane_rows_of(self, lane: int, tensors, stream=None):
+        """Lane ``lane``'s rows of the block tensors, on its device. With a
+        stream, the block's memory is marked as used there too."""
+        dev = self.lane_devices[lane]
+        rows = slice(lane * self._lane_rows, (lane + 1) * self._lane_rows)
+        out = []
+        for t in tensors:
+            if stream is not None and t.device == dev:
+                t.record_stream(stream)
+            out.append(t[rows].to(dev, non_blocking=True))
+        return out
+
+    def _lane_sweep(self, lane: _SweepLane, work):
+        """One lane's rows of one block, on the lane's thread and stream:
+        the sweep (``z_lane``), the nonzeros of its delta
+        (``delta_sparsify``, which waits for the stream), and the swept z
+        narrowed for the write-back. Returns the narrowed z with its event,
+        the first ``nnz`` COO entries and the histogram, on the host."""
+        ztables, psi, tokens, mask, z, u, ready = work
+        if lane.stream is not None:
+            lane.stream.wait_event(ready)
+            if u.device == lane.device:
+                u.record_stream(lane.stream)
+        tokens_r, mask_r, z_r = self._lane_rows_of(
+            lane.d, (tokens, mask, z), lane.stream)
+        z_new, dn, dh = SH.z_lane(self.cfg, ztables, z_r, tokens_r, mask_r,
+                                  psi, u, n_lanes=self.n_lanes, lane=lane.d,
+                                  in_kernel=self.in_kernel)
+        return (self._narrow(z_new), *self._lane_delta(dn, dh))
+
+    def _lane_delta(self, dn, dh):
+        """A lane's delta as its first ``nnz`` COO entries
+        (``delta_sparsify``, which waits for the current stream) and its
+        histogram, on the host."""
+        idx, val, nnz = zops.delta_sparsify(dn, self._nnz_cap)
+        return (idx[:nnz].cpu().numpy(), val[:nnz].cpu().numpy()), dh.cpu().numpy()
+
+    def _merge_lanes(self, hold: dict, parts, health: bool):
+        """Merge one block's lane results in ascending lane order through
+        the packed exchange, and advance ``hold``'s n and dh by one add
+        each. Returns the merged host delta's nonzero count (None without
+        ``health``)."""
+        K, V = self.cfg.K, self.cfg.V
+        packs = [DW.pack_coo(idx, val, (K, V)) for _, (idx, val), _ in parts]
+        merged = DW.reduce_packed(packs, shape=(K, V))
+        self.delta_reduce_bytes += DW.packed_nbytes(packs)
+        dh_sum = np.sum([dh for _, _, dh in parts], axis=0, dtype=np.int64)
+        dn_dev = torch.from_numpy(merged).to(self.device)
+        dh_dev = torch.from_numpy(dh_sum.astype(np.int32)).to(self.device)
+        n_run = hold["n_run"]
+        hold["n_run"] = (n_run + dn_dev if n_run is hold["n_in"]
+                         else n_run.add_(dn_dev))
+        hold["dh_acc"] += dh_dev
+        return int(np.count_nonzero(merged)) if health else None
 
     def _tail(self, gen, dh_acc, state, n_run, phi, varphi):
         l = sample_l(gen, dh_acc, state.psi, self.cfg.alpha)
@@ -341,7 +572,9 @@ class StreamingHDP:
         Per block the sweep emits (z', dn, dh), and the card-resident
         statistic advances by ``n_run += dn``. The driver thread only
         queues work on the card: block b+1's copy, block b's sweep and
-        block b-1's write-back run at once.
+        block b-1's write-back run at once. With sweep lanes the driver
+        hands each lane its rows and the reducer thread merges the lanes'
+        deltas (the module docstring).
 
         The keyword arguments resume a partly swept iteration from a
         checkpoint (``restore`` returns them: the cursor ``start_block``,
@@ -358,65 +591,193 @@ class StreamingHDP:
                 "stop_after_blocks without ckpt_dir would drop the partial "
                 "sweep (z slabs are updated in place)")
         cfg, gen = self.cfg, state.gen
-        if ztables is None:
-            gen_start = gen.get_state()
-            phi, varphi, ztables = self._phi_tables(gen, state.n, state.varphi,
-                                                    state.psi)
-        else:
-            phi, varphi, ztables = ztables
+        tr = obs.tracer()
+        # reductions that only feed metrics run with a sink attached
+        health = obs.metrics_on()
+        clock = PhaseClock() if health else NULL_CLOCK
+        dn_nnz = torch.zeros((), dtype=torch.int64, device=self.device) if health else None
         n_run = state.n if n_run is None else n_run
         dh_acc = self._zero_dh() if dh_acc is None else dh_acc
-        z_store = state.z_blocks
+        lane_mode = self.n_lanes > 1
+        lanes: list[_SweepLane] = []
+        reducer = None
+        # lane mode: the reducer thread owns the statistic; the driver reads
+        # it back from `hold` after a flush or close
+        hold = {"n_in": state.n, "n_run": n_run, "dh_acc": dh_acc, "dn_nnz": 0}
         done, saved_cursor = 0, -1
+        z_store = state.z_blocks
         staged = self._staged_blocks(z_store, start_block)
-        writer = BlockWriteback(z_store.write, self._to_host,
+        writer = BlockWriteback(z_store.write,
+                                self._lanes_to_host if lane_mode else self._to_host,
                                 depth=self.writeback_depth)
         try:
-            for item in staged:
+            if ztables is None:
+                # queued while the prefetch threads read and stage block 0;
+                # the span waits for the card to finish the tables
+                gen_start = gen.get_state()
+                phi, varphi, ztables = self._phi_tables(gen, state.n, state.varphi,
+                                                        state.psi)
+                obs.metrics().counter("train.alias_rebuilds").inc()
+                with tr.span("tables.build", cat="pipeline"), \
+                        clock.time("tables.build"):
+                    ready = self._ready_event()
+                    if ready is not None:
+                        ready.synchronize()
+            else:
+                phi, varphi, ztables = ztables
+            if lane_mode:
+                # each lane device holds the (small) tables and psi
+                ztab_lanes = [tuple(t.to(dev) for t in ztables)
+                              for dev in self.lane_devices]
+                psi_lanes = [state.psi.to(dev) for dev in self.lane_devices]
+                lanes = [_SweepLane(d, dev, self._lane_sweep)
+                         for d, dev in enumerate(self.lane_devices)]
+                main = torch.cuda.current_stream(self.device) if self._cuda else None
+
+                def reduce_block(b):
+                    parts = [lane.take(b) for lane in lanes]
+                    with tr.span("delta_reduce", cat="pipeline", block=b):
+                        if main is None:
+                            nnz = self._merge_lanes(hold, parts, health)
+                        else:
+                            with torch.cuda.device(self.device), torch.cuda.stream(main):
+                                nnz = self._merge_lanes(hold, parts, health)
+                        if health:
+                            hold["dn_nnz"] += nnz
+                    writer.submit(b, [z for z, _, _ in parts])
+
+                reducer = AsyncStage(reduce_block, depth=2, name="delta_reduce")
+            staged_it = iter(staged)
+            while True:
+                with tr.span("stage_wait", cat="pipeline"), clock.time("stage_wait"):
+                    item = next(staged_it, None)
+                if item is None:
+                    break
                 b, tokens_b, mask_b, z_b = self._take(item)
-                u = self._uniforms(gen)
-                z_b, dn, dh = SH.z_block(cfg, ztables, z_b, tokens_b, mask_b,
-                                         state.psi, u, in_kernel=self.in_kernel)
-                n_run = n_run + dn if n_run is state.n else n_run.add_(dn)
-                dh_acc += dh
-                writer.submit(b, self._narrow(z_b))
+                if lane_mode:
+                    with tr.span("sweep_submit", cat="pipeline", block=b), \
+                            clock.time("sweep_submit"):
+                        u = self._uniforms(gen)
+                        ready = self._ready_event()
+                        for d, lane in enumerate(lanes):
+                            lane.submit(b, (ztab_lanes[d], psi_lanes[d], tokens_b,
+                                            mask_b, z_b, u, ready))
+                        reducer.submit(b)
+                else:
+                    with tr.span("sweep", cat="pipeline", block=b), clock.time("sweep"):
+                        u = self._uniforms(gen)
+                        z_b, dn, dh = SH.z_block(cfg, ztables, z_b, tokens_b, mask_b,
+                                                 state.psi, u, in_kernel=self.in_kernel)
+                        n_run = n_run + dn if n_run is state.n else n_run.add_(dn)
+                        dh_acc += dh
+                        if health:
+                            dn_nnz += torch.count_nonzero(dn)
+                    with tr.span("wb_submit", cat="pipeline", block=b), \
+                            clock.time("wb_submit"):
+                        writer.submit(b, self._narrow(z_b))
                 done += 1
                 cursor = b + 1
                 more = cursor < self.store.num_blocks
-                if (ckpt_dir and ckpt_every_blocks and more
-                        and cursor % ckpt_every_blocks == 0):
-                    writer.flush()  # the save reads the stored slabs
-                    self._save(ckpt_dir, state, cursor, n_run, dh_acc,
-                               gen_start, gen.get_state())
-                    saved_cursor = cursor
-                if stop_after_blocks is not None and done >= stop_after_blocks and more:
-                    if saved_cursor != cursor:
-                        writer.flush()
+                due = (ckpt_dir and ckpt_every_blocks and more
+                       and cursor % ckpt_every_blocks == 0)
+                stop = stop_after_blocks is not None and done >= stop_after_blocks and more
+                if due or (stop and saved_cursor != cursor):
+                    with tr.span("checkpoint", cat="pipeline", block=b), \
+                            clock.time("checkpoint"):
+                        if lane_mode:
+                            reducer.flush()  # the statistic is current in hold
+                            n_run, dh_acc = hold["n_run"], hold["dh_acc"]
+                        writer.flush()  # the save reads the stored slabs
                         self._save(ckpt_dir, state, cursor, n_run, dh_acc,
                                    gen_start, gen.get_state())
+                    saved_cursor = cursor
+                if stop:
                     return None
         finally:
             staged.close()  # unblocks the prefetch threads on an early exit
-            writer.close()  # drains the write-backs
-        return self._tail(gen, dh_acc, state, n_run, phi, varphi)
+            try:
+                try:
+                    if reducer is not None:
+                        reducer.close()  # drains the merges, which read the lanes
+                finally:
+                    for lane in lanes:
+                        lane.close()
+            finally:
+                writer.close()  # drains the write-backs
+        if lane_mode:
+            n_run, dh_acc = hold["n_run"], hold["dh_acc"]
+            if health:
+                dn_nnz = hold["dn_nnz"]
+        with tr.span("tail", cat="pipeline"), clock.time("tail"):
+            out = self._tail(gen, dh_acc, state, n_run, phi, varphi)
+        lane_walls = [(lane.d, lane.wall_s) for lane in lanes] if health else None
+        self._publish_health(out, dn_nnz, done, dh_acc=dh_acc, clock=clock,
+                             lane_walls=lane_walls)
+        return out
+
+    def _publish_health(self, state: StreamingState, dn_nnz, blocks_done,
+                        dh_acc=None, clock=None, lane_walls=None):
+        """An iteration's counters and gauges in the global registry
+        (the reference's names). The host-side counts are always kept;
+        K*, the delta's sparsity and the convergence diagnostics
+        (``obs/diagnostics.py``) only when ``iteration`` gathered them,
+        that is with a metrics sink attached. All read the state and draw
+        nothing. Ends with a rate-limited flush of the sink."""
+        M = obs.metrics()
+        store = state.z_blocks
+        M.counter("train.iterations").inc()
+        M.counter("train.tokens_swept").inc(self.store.num_tokens)
+        M.gauge("train.it").set(int(state.it))
+        M.gauge("train.zstore_read_mb").set(round(store.bytes_read / 2**20, 3))
+        M.gauge("train.zstore_written_mb").set(round(store.bytes_written / 2**20, 3))
+        M.gauge("train.resident_z_slabs_hwm").set(int(store.high_water))
+        M.gauge("train.n_devices").set(self.n_lanes)
+        if self.n_lanes > 1:
+            M.gauge("train.delta_reduce_mb").set(
+                round(self.delta_reduce_bytes / 2**20, 3))
+        if lane_walls:
+            # each lane's sweep wall time, as a phase counter labelled by lane
+            for d, sec in lane_walls:
+                M.counter("train.phase_ms", phase="sweep",
+                          proc=f"d{d}").inc(round(sec * 1e3, 3))
+        if dn_nnz is not None:
+            M.gauge("train.k_star").set(int((state.n > 0).any(dim=1).sum()))
+            denom = max(blocks_done, 1) * self.cfg.K * self.cfg.V
+            M.gauge("train.delta_nnz_frac").set(round(int(dn_nnz) / denom, 6))
+            if dh_acc is not None:
+                if self._diag is None:
+                    from repro_torch.obs.diagnostics import ConvergenceDiagnostics
+                    self._diag = ConvergenceDiagnostics(
+                        self.cfg, num_tokens=self.store.num_tokens)
+                self._diag.update(M, state.n, dh_acc, state.psi)
+        if clock is not None:
+            for phase, sec in clock.acc.items():
+                M.counter("train.phase_ms", phase=phase).inc(round(sec * 1e3, 3))
+        obs.flush_metrics()
 
     def iteration_profiled(self, state: StreamingState, timers=None):
         """One Gibbs iteration, bitwise ``iteration()``, with its wall time
-        split by phase: serialized (no prefetch or write-back threads) and
-        the card synchronized at every phase boundary (``PhaseTimers``), so
-        each span holds one phase: tables.build, corpus_read (the block
-        into its host buffer), z_read (its slab too), h2d,
-        sweep (the block's uniforms and its z-step), merge (n += dn,
-        dh), writeback (narrow, D2H and the store's write) and tail (l
-        and Psi). Use ``iteration()`` for throughput: the overlap is the
-        point there. Returns ``(state', timers)``."""
+        split by phase: serialized (no prefetch, write-back or lane
+        threads) and the card synchronized at every phase boundary
+        (``PhaseTimers``), so each span holds one phase: tables.build,
+        corpus_read (the block into its host buffer), z_read (its slab
+        too), h2d, sweep (the block's uniforms and its z-step, every
+        lane's in turn with lanes), merge (n += dn, dh; with lanes the
+        nonzeros' extraction and the packed exchange too), writeback
+        (narrow, D2H and the store's write) and tail (l and Psi). Use
+        ``iteration()`` for throughput: the overlap is the point there.
+        Returns ``(state', timers)``."""
         cfg, gen = self.cfg, state.gen
         timers = PhaseTimers(self.device) if timers is None else timers
         with timers.phase("tables.build"):
             phi, varphi, ztables = self._phi_tables(gen, state.n, state.varphi,
                                                     state.psi)
+            ztab_lanes = [tuple(t.to(dev) for t in ztables) for dev in self.lane_devices]
+            psi_lanes = [state.psi.to(dev) for dev in self.lane_devices]
         n_run, dh_acc = state.n, self._zero_dh()
+        hold = {"n_in": state.n, "n_run": n_run, "dh_acc": dh_acc}
         z_store = state.z_blocks
+        lanes = range(self.n_lanes)
         for b in range(self.store.num_blocks):
             with timers.phase("corpus_read"):
                 host = self._host_block(b)
@@ -424,6 +785,21 @@ class StreamingHDP:
                 self._host_z(host, z_store)
             with timers.phase("h2d"):
                 _, tokens_b, mask_b, z_old = self._take(self._to_device(host))
+            if self.n_lanes > 1:
+                with timers.phase("sweep"):
+                    u = self._uniforms(gen)
+                    outs = [SH.z_lane(cfg, ztab_lanes[d],
+                                      *self._lane_rows_of(d, (z_old, tokens_b, mask_b)),
+                                      psi_lanes[d], u, n_lanes=self.n_lanes, lane=d,
+                                      in_kernel=self.in_kernel) for d in lanes]
+                with timers.phase("merge"):
+                    parts = [(z_new, *self._lane_delta(dn, dh)) for z_new, dn, dh in outs]
+                    del outs
+                    self._merge_lanes(hold, parts, health=False)
+                with timers.phase("writeback"):
+                    z_store.write(b, self._lanes_to_host(
+                        [self._narrow(z) for z, _, _ in parts]))
+                continue
             with timers.phase("sweep"):
                 u = self._uniforms(gen)
                 z_b, m, dn = SH.z_sweep_u(cfg, ztables, z_old, tokens_b, mask_b,
@@ -434,6 +810,8 @@ class StreamingHDP:
                 dh_acc += dh
             with timers.phase("writeback"):
                 z_store.write(b, self._to_host(self._narrow(z_b)))
+        if self.n_lanes > 1:
+            n_run, dh_acc = hold["n_run"], hold["dh_acc"]
         with timers.phase("tail"):
             out = self._tail(gen, dh_acc, state, n_run, phi, varphi)
         return out, timers

@@ -10,7 +10,9 @@ Gibbs iteration (counterpart of ``repro/data/stream.py``).
     driver's read of a block and its z slab) under one shared in-flight
     budget.
   * ``AsyncStage``/``BlockWriteback`` write swept blocks back on a daemon
-    thread, so the driver never waits for a sweep it has queued.
+    thread, so the driver never waits for a sweep it has queued; each
+    work item is a span on the tracer (``repro_torch.obs``), "writeback"
+    for the write-back.
 
 The stages are device-agnostic: the streaming driver
 (core/streaming.py) passes the functions that copy to and from the card
@@ -27,6 +29,7 @@ from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.data.corpus import Corpus
 
 
@@ -166,6 +169,11 @@ class AsyncStage:
         )
         self._thread.start()
 
+    def _span(self, item):
+        """The trace span around one work item (subclasses name it); the
+        shared no-op span when tracing is off."""
+        return obs.tracer().span(self._name, cat="pipeline")
+
     def _worker(self):
         while True:
             item = self._q.get()
@@ -174,7 +182,8 @@ class AsyncStage:
                     return
                 if self._err is None:
                     try:
-                        self._fn(item)
+                        with self._span(item):
+                            self._fn(item)
                     except BaseException as e:  # surfaced on flush/close
                         self._err = e
             finally:
@@ -228,6 +237,11 @@ class BlockWriteback(AsyncStage):
             sink(index, fetch(payload))
 
         super().__init__(run, depth=depth, name="BlockWriteback")
+
+    def _span(self, item):
+        # the fetch in this span waits for the sweep on the card, so the
+        # span is where device work shows on the write-back's track
+        return obs.tracer().span("writeback", cat="pipeline", block=item[0])
 
     def submit(self, index: int, payload):  # type: ignore[override]
         super().submit((index, payload))

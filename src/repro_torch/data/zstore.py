@@ -39,6 +39,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch import obs
+
 # Content stamps are process-global monotone counters so that two slab
 # stores (e.g. two chains driven by one StreamingHDP in tests) can save
 # into the same checkpoint directory without stamp collisions: a
@@ -443,8 +445,9 @@ class DiskZStore(ZSlabStore):
         try:
             # packed stores keep packed files AND hand out packed slabs:
             # the disk read and the H2D copy both move dtype-sized bytes.
-            arr = self._zbs.load_block(b, int(self._zbs.versions[b]),
-                                       self.block_shape, self.dtype)
+            with obs.tracer().span("zstore_read", cat="zstore", block=b):
+                arr = self._zbs.load_block(b, int(self._zbs.versions[b]),
+                                           self.block_shape, self.dtype)
         except BaseException:
             # a failed load checked nothing out for the caller to
             # release — undo, or the resident-slab accounting (and the
@@ -463,7 +466,8 @@ class DiskZStore(ZSlabStore):
             old = int(self._zbs.versions[b])
             self.touch(b)
             packed = self._packed(arr)
-            self._zbs.write_block(b, packed, int(self.stamps[b]))
+            with obs.tracer().span("zstore_write", cat="zstore", block=b):
+                self._zbs.write_block(b, packed, int(self.stamps[b]))
             self.bytes_written += packed.nbytes
             if old >= 0 and (b, old) not in self._pinned:
                 self._zbs.delete(b, old)

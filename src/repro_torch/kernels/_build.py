@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -47,6 +48,8 @@ DEFAULT_SOURCE_FLAGS = ("--fmad=true",)
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# sweep lanes and fleet workers may reach a library first from several threads
+_LOAD_LOCK = threading.Lock()
 # seconds spent compiling, per source, in this process (0 when cached)
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -123,8 +126,9 @@ def load(source: Path) -> ctypes.CDLL:
     """Build if needed, then load once per process: later calls return
     the loaded library without reading the source again."""
     key = str(Path(source).resolve())
-    lib = _LOADED.get(key)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(source)))
-        _LOADED[key] = lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            _LOADED[key] = lib
     return lib

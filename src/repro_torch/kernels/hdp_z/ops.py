@@ -139,6 +139,28 @@ def max_column_nnz(phi: torch.Tensor) -> int:
     return int((phi > 0).sum(0).max())
 
 
+def delta_sparsify(dn: torch.Tensor, cap: int):
+    """COO extraction of a sweep's integer delta_n on its device: the
+    device half of the sparse bit-packed exchange (``data/deltawire.py``)
+    (counterpart of ``repro/kernels/hdp_z/ops.py::delta_sparsify``).
+
+    Returns ``(idx, val, nnz)``: ``idx`` the first ``cap`` flat C-order
+    nonzero positions (ascending, zero-padded past ``nnz``), ``val`` the
+    deltas there (past ``nnz`` the delta at position 0, as the
+    reference's padded gather gives), ``nnz`` the true count as an int.
+    ``torch.nonzero`` has no static size, so this waits for the current
+    stream: the sweep lanes call it on their own threads, which wait on
+    their streams anyway. Only ``idx[:nnz]`` and ``val[:nnz]`` need to
+    cross to the host (``deltawire.pack_coo``)."""
+    flat = dn.reshape(-1)
+    nz = torch.nonzero(flat).reshape(-1)
+    nnz = int(nz.numel())
+    idx = torch.zeros((cap,), dtype=torch.int32, device=dn.device)
+    take = min(nnz, cap)
+    idx[:take] = nz[:take].to(torch.int32)
+    return idx, flat[idx.to(torch.int64)], nnz
+
+
 def z_step_cuda(
     tokens, mask, z, phi, psi, alpha, uniforms, bucket, *,
     order="value", compact=False, emit_delta=False, alias_in_kernel="auto",

@@ -22,6 +22,10 @@ steps and held-out fold-in perplexity.
   # 3-sample posterior ensemble:
   PYTHONPATH=src python -m repro_torch.launch.serve_hdp \\
       --registry "${TMPDIR:-/tmp}"/hdp_reg --workers 2 --watch-registry --ensemble 3
+
+``--trace PATH`` writes the requests' spans as a Chrome trace and
+``--metrics PATH`` appends metrics snapshots (JSONL): the queue-wait,
+service and latency histograms, queue depths and SLO counters.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdp_z import hdp_z as HZ
@@ -238,6 +243,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "miss (fleet mode)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda with no card is an error")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the requests' spans as a Chrome trace to PATH")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="append metrics snapshots (JSONL) to PATH")
     return ap
 
 
@@ -259,7 +268,12 @@ def main(argv: list[str] | None = None) -> None:
         resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}") from None
-    serve(args)
+    obs.setup(trace=args.trace, metrics_path=args.metrics)
+    try:
+        serve(args)
+        obs.flush_metrics(force=True)
+    finally:
+        obs.finalize()
 
 
 if __name__ == "__main__":

@@ -1,17 +1,24 @@
 """HDP training driver (counterpart of the ``--hdp`` path of
-``repro/launch/train.py``), single device.
+``repro/launch/train.py``), on one device, with sweep lanes on several.
 
   PYTHONPATH=src python -m repro_torch.launch.train --hdp ap --scale 0.01 \
       --iters 2 --topics 20 --max-len 64            # on the card
   ... --device cpu                                  # plain versions, CPU
   ... --stream --block-docs 16 --ckpt DIR --ckpt-every 1 --ckpt-every-blocks 2
                                                     # block-streamed, resumable
+  ... --stream --block-docs 16 --devices 4          # 4 sweep lanes
+  ... --trace t.json --metrics m.jsonl              # Chrome trace, metrics
 
 Prints one dict per ``--log-every`` iterations, then a JSON summary line.
 With ``--stream`` the corpus is swept block by block
 (``core/streaming.py``); a rerun with the same ``--ckpt`` resumes from
 its latest checkpoint, mid-iteration too, and prints
-``restored streaming state: iteration N, block cursor C``.
+``restored streaming state: iteration N, block cursor C``. ``--devices
+N`` splits each block's rows over N sweep lanes (one card: N streams;
+the chain is bitwise ``--devices 1``'s). ``--trace`` writes the run's
+spans as a Chrome trace, ``--metrics`` appends metrics snapshots (JSONL,
+``launch/monitor.py`` reads them) and turns on the per-iteration health
+gauges.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import hdp as H
 from repro_torch.core.streaming import StreamingHDP
 from repro_torch.data.stream import ShardedCorpusStore
@@ -119,7 +127,8 @@ def train_hdp_streaming(args: argparse.Namespace):
     store = ShardedCorpusStore.from_corpus(corpus, args.block_docs)
     stream = StreamingHDP(cfg, store, device=device, z_store=args.z_store,
                           z_dir=args.z_dir or args.ckpt, z_pack=args.z_pack,
-                          block_sparse_tables=args.block_sparse_tables)
+                          block_sparse_tables=args.block_sparse_tables,
+                          n_lanes=args.devices)
     if device.type == "cuda" and cfg.z_impl == "cuda":
         _build.build_all(HZ.SOURCES)
     state, resume_kw = None, {}
@@ -132,7 +141,8 @@ def train_hdp_streaming(args: argparse.Namespace):
         state = stream.init_state(args.seed)
     print(f"streaming: {store.num_blocks} blocks x {store.block_docs} docs "
           f"(corpus {store.num_docs} docs, {store.num_tokens} tokens), z slabs "
-          f"in {state.z_blocks.kind} as {state.z_blocks.dtype}", flush=True)
+          f"in {state.z_blocks.kind} as {state.z_blocks.dtype}, "
+          f"{stream.n_lanes} sweep lane(s)", flush=True)
     history = []
     dt = 0.0
     for i in range(args.iters):
@@ -158,6 +168,8 @@ def train_hdp_streaming(args: argparse.Namespace):
         "blocks": store.num_blocks, "iters": args.iters,
         "z_store": state.z_blocks.kind, "z_dtype": state.z_blocks.dtype.name,
         "block_sparse_tables": stream.block_sparse_tables,
+        "sweep_lanes": stream.n_lanes,
+        "delta_reduce_mb": stream.delta_reduce_bytes / 2**20,
         "sec_per_iter": dt / args.iters,
         "tokens_per_s": store.num_tokens * args.iters / dt,
         "device": str(device), "z_impl": cfg.z_impl,
@@ -200,16 +212,38 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-sparse-tables", default="auto",
                     choices=("auto", "on", "off"),
                     help="tables only for the corpus's words (--stream)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="sweep lanes: each block's rows split over this many "
+                         "lanes, on the one card a stream each; the chain is "
+                         "bitwise --devices 1's (--stream)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the run's spans as a Chrome trace to PATH")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="append metrics snapshots (JSONL) to PATH; also "
+                         "turns on the per-iteration health gauges")
+    ap.add_argument("--metrics-every", type=float, default=None,
+                    help="seconds between periodic metrics snapshots "
+                         "(default: iteration boundaries only)")
     return ap
 
 
-def main(argv: list[str] | None = None) -> None:
-    args = build_parser().parse_args(argv)
+def main(argv: list[str] | None = None):
+    """Run the CLI; returns what the training function returns (the final
+    state, the logged history and the printed summary)."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.devices != 1 and not args.stream:
+        ap.error("--devices sets the streamed trainer's sweep lanes: pass --stream")
     try:
         resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}") from None
-    (train_hdp_streaming if args.stream else train_hdp)(args)
+    obs.setup(trace=args.trace, metrics_path=args.metrics,
+              metrics_every_s=args.metrics_every)
+    try:
+        return (train_hdp_streaming if args.stream else train_hdp)(args)
+    finally:
+        obs.finalize()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ span holds the device work its phase queued and the spans of a
 serialized iteration (``StreamingHDP.iteration_profiled``) add up to its
 wall time. Phases are strictly sequential: a nested phase would count
 its time twice, so ``phase`` raises on re-entry. Times are
-``time.perf_counter`` (monotonic).
+``time.perf_counter`` (monotonic). Each span also goes to the global
+span tracer (``repro_torch.obs``) when tracing is on, so a ``--trace``
+run shows the phases on the timeline that the totals sum.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import synchronize
 
 
@@ -45,8 +48,12 @@ class PhaseTimers:
             yield
         finally:
             synchronize(self.device)
-            self.spans.append((name, t0, time.perf_counter() - t0))
+            dt = time.perf_counter() - t0
+            self.spans.append((name, t0, dt))
             self._active = None
+            tr = obs.tracer()
+            if tr.enabled:
+                tr._emit_complete(name, "phase", t0, dt, None)
 
     @property
     def totals(self) -> dict[str, float]:

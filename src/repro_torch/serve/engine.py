@@ -22,6 +22,11 @@ and cost the sweep nothing beyond their lane.
 Every step hands the sweep fresh device tensors of the host's staging
 arrays (tokens, mask and seeds when admission changed them, the sweep
 counts always), never a view that the host mutates afterwards.
+
+Observability (``repro_torch.obs``), as the reference's engine: each
+request's ``request.queued`` and ``request.inflight`` async spans, the
+``serve.queue_wait_ms`` and ``serve.service_ms`` histograms a bucket,
+and an ``engine_step`` span a step. None of it reaches a mixture.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import conformance as C
 from repro_torch.data.stream import AsyncStage
 from repro_torch.serve import foldin as F
@@ -109,6 +115,7 @@ class _Pending:
     rid: int
     tokens: Optional[np.ndarray]      # dropped once packed
     submit_t: float
+    admit_t: Optional[float] = None
     # the bucket-padded row pair that admission installs with two copies:
     # packed at submit time (sync) or by the admission packer (async)
     # before the entry becomes visible to ``_admit``
@@ -160,12 +167,14 @@ class ServeEngine:
     ``submit`` enqueues documents; ``run`` drives steps until the queue
     drains and returns {request id: (K,) mixture}. Documents longer than
     the largest bucket are truncated to it (fold-in over a prefix).
+    ``trace_tag`` names the engine in its trace spans (a fleet worker's
+    ``w{worker}.v{version}``).
     """
 
     def __init__(
         self, snap: ModelSnapshot, *, slots: int = 8, burnin: int = 16,
         impl: str = "cuda", buckets: Sequence[int] = DEFAULT_BUCKETS,
-        base_seed: int = 0, async_admit: bool = False,
+        base_seed: int = 0, async_admit: bool = False, trace_tag: str = "",
     ):
         if slots <= 0:
             raise ValueError("slots must be positive")
@@ -183,6 +192,7 @@ class ServeEngine:
         self.impl = impl
         self.buckets = tuple(sorted(buckets))
         self.base_seed = int(base_seed)
+        self.trace_tag = trace_tag
         self._pools: dict[int, _Slots] = {}
         self._queue: dict[int, list[_Pending]] = {b: [] for b in self.buckets}
         self._reqs: dict[int, _Pending] = {}          # in flight only
@@ -231,6 +241,10 @@ class ServeEngine:
         p = _Pending(rid=rid, tokens=tokens, submit_t=time.perf_counter())
         self._reqs[rid] = p
         bucket = self._bucket(tokens.size)
+        tr = obs.tracer()
+        if tr.enabled:
+            tr.async_begin("request.queued", self._aid(rid), cat="serve",
+                           bucket=bucket, tag=self.trace_tag)
         if self._packer is not None:
             self._packer.submit((p, bucket))  # packs and enqueues off-thread
         else:
@@ -238,10 +252,16 @@ class ServeEngine:
             self._queue[bucket].append(p)
         return rid
 
+    def _aid(self, rid: int) -> str:
+        """A request's async trace-event id (unique within the engine)."""
+        return f"{self.trace_tag}:{rid}" if self.trace_tag else str(rid)
+
     # -- slot admission and retirement -------------------------------------
     def _admit(self, pool: _Slots, bucket: int):
         q = self._queue[bucket]
         admitted = False
+        tr = obs.tracer()
+        hist = obs.metrics().histogram("serve.queue_wait_ms", bucket=bucket)
         for s in range(self.slots):
             if pool.req[s] is not None or not q:
                 continue
@@ -252,6 +272,13 @@ class ServeEngine:
             pool.sweeps[s] = 0
             pool.req[s] = p.rid
             p.row_tokens = p.row_mask = None
+            p.admit_t = time.perf_counter()
+            hist.observe((p.admit_t - p.submit_t) * 1e3)
+            if tr.enabled:
+                aid = self._aid(p.rid)
+                tr.async_end("request.queued", aid, cat="serve")
+                tr.async_begin("request.inflight", aid, cat="serve",
+                               bucket=bucket, slot=s, tag=self.trace_tag)
             admitted = True
         if admitted:
             pool.mark_dirty()
@@ -267,12 +294,18 @@ class ServeEngine:
         theta = F.topic_mixture_from_m(pool.m[rows], self.snap.psi,
                                        self.snap.alpha).cpu().numpy()
         now = time.perf_counter()
+        tr = obs.tracer()
+        hist = obs.metrics().histogram("serve.service_ms", bucket=pool.tokens.shape[1])
         for i, s in enumerate(done):
             # evict the request: a long-lived engine keeps no per-request state
             p = self._reqs.pop(pool.req[s])
             self._completed[p.rid] = theta[i]
             self.stats.completed += 1
             self.stats.record_latency(now - p.submit_t)
+            if p.admit_t is not None:
+                hist.observe((now - p.admit_t) * 1e3)
+            if tr.enabled:
+                tr.async_end("request.inflight", self._aid(p.rid), cat="serve")
             pool.req[s] = None
             pool.mask[s] = False
         # the freed rows' device mask stays live until the next upload:
@@ -296,11 +329,13 @@ class ServeEngine:
                 continue
             busy = True
             has_fresh = bool((live & (pool.sweeps == 0)).any())
-            d_tokens, d_mask, d_seeds = pool.device_batch()
-            sweeps = torch.tensor(pool.sweeps, device=self.device)
-            pool.z, pool.m = _engine_step(
-                self.snap, d_tokens, d_mask, pool.z, d_seeds, sweeps,
-                self.base_seed, impl=self.impl, has_fresh=has_fresh)
+            with obs.tracer().span("engine_step", cat="serve", bucket=bucket,
+                                   tag=self.trace_tag):
+                d_tokens, d_mask, d_seeds = pool.device_batch()
+                sweeps = torch.tensor(pool.sweeps, device=self.device)
+                pool.z, pool.m = _engine_step(
+                    self.snap, d_tokens, d_mask, pool.z, d_seeds, sweeps,
+                    self.base_seed, impl=self.impl, has_fresh=has_fresh)
             pool.sweeps[live] += 1
             self.stats.steps += 1
             self.stats.shapes.add((self.slots, bucket))

@@ -72,7 +72,8 @@ class _Worker(threading.Thread):
             eng = ServeEngine(
                 f._snapshot(version).to(self.device), slots=f.slots,
                 burnin=f.burnin, impl=f.impl, buckets=f.buckets,
-                base_seed=f.base_seed, async_admit=True)
+                base_seed=f.base_seed, async_admit=True,
+                trace_tag=f"w{self.wid}.v{version}")
             self.engines[version] = eng
         return eng
 

@@ -22,6 +22,11 @@ Dispatch policy is deliberately free to be greedy/racy: a document's
 mixture depends only on (snapshot, base_key, seed, tokens) — the
 fold-in randomness contract — never on which worker computed it, so
 load balancing cannot perturb results.
+
+The router reports into ``repro_torch.obs`` as the reference's does: a
+``serve.queue_depth`` gauge a bucket, a ``request`` async span per
+request, and at completion the ``serve.latency_ms`` histogram and the
+``serve.slo_ok``/``serve.slo_miss`` counters a bucket.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
+
+from repro_torch import obs
 
 
 @dataclass
@@ -93,6 +100,9 @@ class AdmissionRouter:
         self._slo_miss = 0
         self._closed = False
 
+    def _depth_gauge(self, bucket: int):
+        return obs.metrics().gauge("serve.queue_depth", bucket=bucket)
+
     # -- admission ---------------------------------------------------------
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -142,7 +152,12 @@ class AdmissionRouter:
                     submit_t=now,
                 ))
                 self._queued += 1
+            self._depth_gauge(bucket).set(len(self._queues[bucket]))
             self._work.notify_all()
+        tr = obs.tracer()
+        if tr.enabled:
+            tr.async_begin("request", rid, cat="router", bucket=bucket,
+                           subtasks=n_sub)
         return rid
 
     # -- dispatch ----------------------------------------------------------
@@ -174,6 +189,7 @@ class AdmissionRouter:
                 out.append(q.popleft())
             self._queued -= len(out)
             if out:
+                self._depth_gauge(bucket).set(len(q))
                 self._space.notify_all()
             return out
 
@@ -203,11 +219,19 @@ class AdmissionRouter:
                 drop = self._LAT_CAP // 2
                 del self._latencies[:drop]
                 self._latencies_dropped += drop
+            lat_ms = lat_s * 1e3
+            M = obs.metrics()
+            M.histogram("serve.latency_ms", bucket=task.bucket).observe(lat_ms)
             if self.slo_ms is not None:
-                if lat_s * 1e3 <= self.slo_ms:
+                if lat_ms <= self.slo_ms:
                     self._slo_ok += 1
+                    M.counter("serve.slo_ok", bucket=task.bucket).inc()
                 else:
                     self._slo_miss += 1
+                    M.counter("serve.slo_miss", bucket=task.bucket).inc()
+            tr = obs.tracer()
+            if tr.enabled:
+                tr.async_end("request", task.rid, cat="router")
             self._done.notify_all()
 
     def drain(self, timeout: Optional[float] = None) -> dict:

@@ -38,7 +38,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 51  # every module was reached
+    assert int(out.stdout.strip()) >= 67  # every module was reached
 
 
 STREAMING_MODULES = (
@@ -54,6 +54,28 @@ def test_streaming_modules_import_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"
         f"for n in {STREAMING_MODULES!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+OBS_MODULES = (
+    "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+    "repro_torch.obs.diagnostics", "repro_torch.data.deltawire",
+    "repro_torch.launch.monitor", "repro_torch.launch.dashboard",
+)
+
+
+def test_obs_deltawire_and_monitor_modules_import_no_jax_and_no_repro():
+    """The observability layer, the delta wire format and the monitor,
+    alone in a fresh process (their references import no JAX either)."""
+    code = (
+        "import importlib, sys\n"
+        f"for n in {OBS_MODULES!r}: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
