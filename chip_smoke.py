@@ -156,6 +156,29 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      fleet with trace and metrics on: mixtures bitwise phase 9's engine,
      ``serve.latency_ms`` counting every request, every async span
      paired.
+ 11. hymba-1.5b training at its published width (32 layers, d_model
+     1600, bf16, seed 0) on the synthetic LM stream, B=4, S=512: (a)
+     ``FlashAttentionFn`` (bf16, 25/5 heads, D=64, window 2048) and
+     ``SSDIntraChunkFn`` (H=50, P=64, N=16, chunk 128, float32, the
+     model's dt and A, B and C as stride-0 views of (B, S, N) leaves), the
+     kernel forwards, against plain autograd through ``attention_ref`` and
+     ``ssd_intra_chunk_ref`` on the same card tensors: the forwards at
+     3e-2 and 2e-4, each input gradient within ``FN_GRAD_REL`` of its
+     largest magnitude; each backward timed by events beside the plain
+     VJP alone, its bound and, for attention, SDPA's backward; (b) one
+     loss and backward of the full model: every parameter's gradient
+     present and finite, every block's attn.wq and ssm.in_proj gradient
+     non-zero, each kernel launched twice a layer (forward, recompute);
+     a warm step's split (forward, backward, AdamW, a no-grad forward as
+     the recompute's measure) and one profiled step (device busy, idle
+     share, the kernels' device time); (c) the main path,
+     ``launch/train.py --arch hymba-1.5b --steps 8 --batch 4 --seq 512``:
+     every loss finite, no step skipped, every step launching each kernel
+     64 times on the tensor-core route and calling each plain version 32
+     times (the backward's VJPs, no plain forward); tok/s, ms a step and
+     the peak device memory; (d) at depth 4, full width: 4 steps, a
+     checkpoint, 4 more restored from it, the losses within ``RESUME_REL``
+     of an uninterrupted 8-step run (whose rerun's spread is printed).
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -196,6 +219,8 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.data import deltawire as DW  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FAO  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import FlashAttentionFn  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.hdp_z import hdp_z as HZ  # noqa: E402
 from repro_torch.kernels.hdp_z import ops as zops  # noqa: E402
@@ -203,12 +228,19 @@ from repro_torch.kernels.hdp_z.hdp_z import hdp_z_cuda  # noqa: E402
 from repro_torch.kernels.hdp_z.ref import (  # noqa: E402
     hdp_z_ref, hdp_z_ref_prologue)
 from repro_torch.kernels.ssd import ssd as SSD  # noqa: E402
+from repro_torch.kernels.ssd import ops as SSDO  # noqa: E402
+from repro_torch.kernels.ssd.ops import SSDIntraChunkFn  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
     decay_to_end, segsum, ssd_intra_chunk_ref)
 from repro_torch.launch import monitor as MON  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
+from repro_torch.data import lm_data as LMD  # noqa: E402
+from repro_torch.models import lm as TLM  # noqa: E402
 from repro_torch.models.lm import CausalLM  # noqa: E402
+from repro_torch.train import checkpoint as CKPT  # noqa: E402
+from repro_torch.train import optimizer as TO  # noqa: E402
+from repro_torch.train import trainer as TT  # noqa: E402
 from repro_torch.perf import PhaseTimers  # noqa: E402
 from repro_torch.serve import eval as EV  # noqa: E402
 from repro_torch.serve import foldin as FI  # noqa: E402
@@ -280,6 +312,22 @@ MAIN_LANES = 4
 LANE_ITERS = 3
 OBS_ITERS = 10
 LANE_STOP_BLOCKS = 5
+
+# hymba-1.5b training (phase 11): batch, sequence and steps of the main
+# path through launch/train.py; the depth and the steps a side of the
+# checkpoint-resume check (full width; at full depth a checkpoint holds
+# 16 GB of bf16 parameters and float32 moments)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
+RESUME_LAYERS, RESUME_STEPS = 4, 4
+# the backward Functions' input gradients against plain autograd on the
+# same card tensors, relative to each gradient's largest magnitude: their
+# backward is that autograd on the same inputs, so any difference is
+# the sum order of the card's products (bf16 attention, float32 SSD)
+FN_GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# resumed losses against the uninterrupted run's, relative to the largest
+# loss: the state is restored exactly, and only the order of the card's
+# sums (atomics in the embedding's backward) may differ between runs
+RESUME_REL = 1e-3
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -1664,6 +1712,358 @@ def lanes_phase(corpus: Corpus, cfg: H.HDPConfig, dev: torch.device, seed: int,
     return out
 
 
+def flash_bwd_bound_ms(b, hq, hkv, s, d, itemsize, causal, window):
+    """The gradient of attention from (q, k, v, dO): q, dO and dq
+    (B, Hq, S, D), k, v, dk, dv (B, Hkv, S, D), each moved once; 10 D
+    operations per unmasked pair (q.k again, dO.v, and the products
+    into dv, dq and dk) at the bf16 tensor-core peak."""
+    nbytes = (3 * b * hq + 4 * b * hkv) * s * d * itemsize
+    ops = 10 * d * b * hq * attention_pairs(s, causal, window)
+    return bound_ms(nbytes, ops, BF16_OPS_PER_S)
+
+
+def ssd_bwd_bound_ms(b, s, h, p, n, cl):
+    """The gradient of the intra-chunk pass: x, dy, dx (B, S, H, P), dt,
+    ddec, ddt (B, S, H), a and da (H,), B, C, dB, dC (B, S, N) shared by
+    the heads, dst (B, NC, H, N, P), all float32 and moved once; twice
+    the forward's products (each product's two operand gradients) at
+    three TF32 passes, and twice its elementwise work at the float32
+    peak."""
+    nc = s // cl
+    nbytes = 4 * (3 * b * s * h * p + 3 * b * s * h + 2 * h + 4 * b * s * n
+                  + b * nc * h * n * p)
+    pairs = cl * (cl + 1) // 2
+    products = 2 * b * nc * h * (pairs * (2 * n + 2 * p) + cl * 2 * n * p)
+    elementwise = 2 * b * nc * h * (pairs * 3 + cl * (p + n + 5))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (products * TF32_PASSES / TF32_OPS_PER_S + elementwise / FP32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grad_rel_errs(got, want) -> list[float]:
+    """max |got - want| over max |want|, per input gradient."""
+    return [float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def check_flash_fn(gen, cfg) -> dict:
+    """11 (a), attention: ``FlashAttentionFn`` (the kernel forward) against
+    plain autograd through ``attention_ref`` at hymba's per-layer shape,
+    q, k, v as transposed views of bf16 leaves, as the model passes its
+    projections; then the Function's backward timed (the plain version's
+    recompute and its VJP) beside the plain VJP alone, its bound and
+    SDPA's backward (timed only; the port never calls it)."""
+    b, s, hq, hkv, d, win = TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.window
+    bf16 = torch.bfloat16
+    leaves = [torch.randn((b, s, h, d), generator=gen, device="cuda").to(bf16).requires_grad_(True)
+              for h in (hq, hkv, hkv)]
+    q, k, v = (t.transpose(1, 2) for t in leaves)
+    before = FA.flash_attention.launches_by_route["tensor_cores"]
+    out = FlashAttentionFn.apply(q, k, v, True, win)
+    check(FA.flash_attention.launches_by_route["tensor_cores"] == before + 1,
+          "FlashAttentionFn: no tensor-core launch")
+    check(out.grad_fn is not None, "FlashAttentionFn: the kernel's output has no grad_fn")
+    want = attention_ref(q, k, v, causal=True, window=win)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(bf16)
+    got_g = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    want_g = torch.autograd.grad(want, leaves, g, retain_graph=True)
+    fwd_err = float((out.detach().float() - want.detach().float()).abs().max())
+    check(fwd_err <= FLASH_ATOL[bf16], f"FlashAttentionFn forward: max error {fwd_err}")
+    rel = grad_rel_errs(got_g, want_g)
+    check(max(rel) <= FN_GRAD_REL[bf16] and all(torch.isfinite(t).all() for t in got_g),
+          f"FlashAttentionFn: input gradients {rel} of their max-abs from plain autograd")
+    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    t = dict(
+        ms=cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 10),
+        plain_vjp_ms=cuda_time_ms(
+            lambda: torch.autograd.grad(want, leaves, g, retain_graph=True), 10),
+        library_ms=cuda_time_ms(
+            lambda: torch.autograd.grad(sdpa, leaves, g, retain_graph=True), 10))
+    t["bound_ms"], t["bound_by"] = flash_bwd_bound_ms(b, hq, hkv, s, d, 2, True, win)
+    print(f"[11] (a) FlashAttentionFn B={b} S={s} {hq}/{hkv} heads D={d} bf16: forward "
+          f"max |kernel - plain| {fwd_err:.3g} (atol {FLASH_ATOL[bf16]}); dq, dk, dv "
+          f"within {', '.join(f'{r:.3g}' for r in rel)} of their max-abs from plain "
+          f"autograd (bar {FN_GRAD_REL[bf16]}); backward {t['ms']:.4f} ms (plain VJP "
+          f"alone {t['plain_vjp_ms']:.4f}, SDPA's backward {t['library_ms']:.4f}, "
+          f"bound {t['bound_ms']:.4f} ms, {t['bound_by']})", flush=True)
+    return {"forward_max_abs_err": fwd_err, "grad_max_rel_err": max(rel), **t}
+
+
+def check_ssd_fn(gen, cfg) -> dict:
+    """11 (a), SSD: ``SSDIntraChunkFn`` (the kernel forward) against plain
+    autograd through ``ssd_intra_chunk_ref`` at hymba's per-layer shape
+    on the model's dt and A, B and C (B, S, N) leaves passed as stride-0
+    views; every output's gradient used; the backward timed beside the
+    plain VJP alone and its bound."""
+    b, s, cl, n = TRAIN_B, TRAIN_S, cfg.ssd_chunk, cfg.ssm_state
+    h, p = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
+    x, dt, a, bm, cm = ssd_inputs(gen, b, s, h, p, n, model=True)
+    leaves = [x.requires_grad_(True), dt.requires_grad_(True), a.requires_grad_(True),
+              bm[:, :, 0].clone().requires_grad_(True), cm[:, :, 0].clone().requires_grad_(True)]
+    args = (*leaves[:3], *(t[:, :, None, :].expand(b, s, h, n) for t in leaves[3:]))
+    before = SSD.ssd_intra_chunk.launches_by_route["tensor_cores"]
+    outs = SSDIntraChunkFn.apply(*args, cl)
+    check(SSD.ssd_intra_chunk.launches_by_route["tensor_cores"] == before + 1,
+          "SSDIntraChunkFn: no tensor-core launch")
+    check(all(o.grad_fn is not None for o in outs), "SSDIntraChunkFn: an output has no grad_fn")
+    want = ssd_intra_chunk_ref(*args, chunk=cl)
+    gs = [torch.randn(o.shape, generator=gen, device="cuda") for o in outs]
+    got_g = torch.autograd.grad(outs, leaves, gs, retain_graph=True)
+    want_g = torch.autograd.grad(want, leaves, gs, retain_graph=True)
+    fwd_err = max(float((o - w).detach().abs().max()) for o, w in zip(outs, want))
+    check(fwd_err <= SSD_ATOL, f"SSDIntraChunkFn forward: max error {fwd_err}")
+    rel = grad_rel_errs(got_g, want_g)
+    check(max(rel) <= FN_GRAD_REL[torch.float32]
+          and all(torch.isfinite(t).all() for t in got_g),
+          f"SSDIntraChunkFn: input gradients {rel} of their max-abs from plain autograd")
+    t = dict(
+        ms=cuda_time_ms(lambda: torch.autograd.grad(outs, leaves, gs, retain_graph=True), 10),
+        plain_vjp_ms=cuda_time_ms(
+            lambda: torch.autograd.grad(want, leaves, gs, retain_graph=True), 10),
+        library_ms=None)
+    t["bound_ms"], t["bound_by"] = ssd_bwd_bound_ms(b, s, h, p, n, cl)
+    print(f"[11] (a) SSDIntraChunkFn B={b} S={s} H={h} P={p} N={n} chunk={cl} f32, the "
+          f"model's dt and A: forward max |kernel - plain| {fwd_err:.3g} (atol "
+          f"{SSD_ATOL}); dx, ddt, da, dB, dC within {', '.join(f'{r:.3g}' for r in rel)} "
+          f"of their max-abs from plain autograd (bar {FN_GRAD_REL[torch.float32]}); "
+          f"backward {t['ms']:.4f} ms (plain VJP alone {t['plain_vjp_ms']:.4f}, bound "
+          f"{t['bound_ms']:.5f} ms, {t['bound_by']})", flush=True)
+    return {"forward_max_abs_err": fwd_err, "grad_max_rel_err": max(rel), **t}
+
+
+def lm_launches() -> tuple[int, int]:
+    return FA.flash_attention.launches, SSD.ssd_intra_chunk.launches
+
+
+def zero_lm_launches() -> None:
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route.update(dict.fromkeys(FA.ROUTES, 0))
+    SSD.ssd_intra_chunk.launches = 0
+    SSD.ssd_intra_chunk.launches_by_route.update(dict.fromkeys(SSD.ROUTES, 0))
+
+
+def synced_ms(fn):
+    """(fn's result, its wall ms between synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_full_width_grads(cfg, dev) -> dict:
+    """11 (b): one loss and backward of the full-width model (seed 0) on a
+    batch of the synthetic stream: every parameter's gradient present and
+    finite, every block's attn.wq and ssm.in_proj gradient non-zero, each
+    kernel launched twice a layer (forward and recompute). Then the split
+    of warm steps (forward with the loss, backward with the recompute,
+    AdamW; a no-grad ``forward_hidden`` as the recompute's measure) and
+    one profiled ``make_train_step`` step: device busy and idle share,
+    kernels by device time."""
+    state = TT.train_state_for(TLM.CausalLM(cfg, torch.Generator(device=dev).manual_seed(0)))
+    params = state.params
+    stream = LMD.SyntheticLMStream(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    bt = TT.batch_tensors(stream.batch(0), dev)
+    inputs = (bt["tokens"], bt["targets"], bt["mask"])
+    zero_lm_launches()
+    loss = TLM.lm_loss(state.model, *inputs)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    launches = lm_launches()
+    check(bool(torch.isfinite(loss)), f"full width: loss {float(loss.detach())}")
+    missing = [n for n, g in zip(params, grads) if g is None]
+    check(not missing, f"full width: no gradient for {missing[:5]} ({len(missing)})")
+    bad = [n for n, g in zip(params, grads) if not torch.isfinite(g).all()]
+    check(not bad, f"full width: non-finite gradients in {bad[:5]} ({len(bad)})")
+    named = dict(zip(params, grads))
+    zero = [n for i in range(cfg.num_layers) for n in (f"blocks.{i}.attn.wq", f"blocks.{i}.ssm.in_proj")
+            if float(named[n].abs().max()) == 0.0]
+    check(not zero, f"full width: zero gradients in {zero}")
+    want = 2 * cfg.num_layers
+    check(launches == (want, want) and FA.flash_attention.launches_by_route["tensor_cores"] == want
+          and SSD.ssd_intra_chunk.launches_by_route["tensor_cores"] == want,
+          f"full width: launches (flash, ssd) {launches}, expected {want} each, tensor-core")
+    n_params = sum(p.numel() for p in params.values())
+    print(f"[11] (b) full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params:,} parameters, bf16), B={TRAIN_B} S={TRAIN_S}: loss "
+          f"{float(loss):.4f}; all {len(params)} gradients present and finite, attn.wq "
+          f"and ssm.in_proj non-zero in every block; launches flash {launches[0]}, ssd "
+          f"{launches[1]} (forward + recompute)", flush=True)
+    del loss, grads, named
+
+    opt = TO.AdamWConfig(lr=1e-3, warmup=20)
+    split = {}
+    for i in range(3):
+        loss, split["forward_ms"] = synced_ms(lambda: TLM.lm_loss(state.model, *inputs))
+        grads, split["backward_ms"] = synced_ms(
+            lambda: torch.autograd.grad(loss, list(params.values())))
+        _, split["adamw_ms"] = synced_ms(lambda: TO.adamw_update(
+            opt, dict(zip(params, grads)), state.mu, state.nu, params, i))
+        del loss, grads
+    with torch.no_grad():
+        _, split["recompute_ms"] = synced_ms(lambda: state.model.forward_hidden(bt["tokens"]))
+
+    step = TT.make_train_step(cfg, opt)
+    state, _ = step(state, bt)  # warm
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, bt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    check(int(m["skipped"]) == 0, "profiled step skipped")
+    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evts) / 1e3
+    by = lambda key: sum(e.self_device_time_total for e in evts if key in e.key) / 1e3  # noqa: E731
+    count = lambda key: sum(e.count for e in evts if key in e.key)  # noqa: E731
+    top = sorted(evts, key=lambda e: -e.self_device_time_total)[:6]
+    prof_split = {
+        "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+        "flash_fwd_sm90_ms": by("flash_fwd_sm90"), "flash_records": count("flash_fwd_sm90"),
+        "ssd_chunk_sm90_ms": by("ssd_chunk_sm90"), "ssd_records": count("ssd_chunk_sm90"),
+        "kernels": len(evts), "launches": sum(e.count for e in evts),
+        "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top]}
+    print(f"[11] (b) a warm step's split, synchronized: forward + loss "
+          f"{split['forward_ms']:.2f} ms, backward (recompute + VJPs) "
+          f"{split['backward_ms']:.2f} ms, AdamW {split['adamw_ms']:.2f} ms; a no-grad "
+          f"forward (the recompute) {split['recompute_ms']:.2f} ms", flush=True)
+    print(f"[11] (b) one profiled step: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle {prof_split['idle_share']:.1%}; flash_fwd_sm90 "
+          f"{prof_split['flash_fwd_sm90_ms']:.3f} ms ({prof_split['flash_records']} "
+          f"records), ssd_chunk_sm90 {prof_split['ssd_chunk_sm90_ms']:.3f} ms "
+          f"({prof_split['ssd_records']} records), {prof_split['launches']} device "
+          f"records in all; largest: " + "; ".join(
+              f"{k} {ms:.2f} ms x{c}" for k, ms, c in prof_split["top"]), flush=True)
+    del state, m
+    torch.cuda.empty_cache()
+    return {"parameters": n_params, "split": split, "profiled_step": prof_split}
+
+
+def train_cli(argv, per_step: list, plain_calls: dict):
+    """``launch/train.py`` with ``argv``, recording each step's kernel
+    launches and the plain versions' calls (the backward's VJPs) into
+    ``per_step`` and ``plain_calls``."""
+    make_step = T.make_train_step
+    plain = (FAO.attention_ref, SSDO.ssd_intra_chunk_ref)
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            plain_calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def make_counting_step(cfg, opt):
+        step = make_step(cfg, opt)
+
+        def counted(state, batch):
+            before = (*lm_launches(), plain_calls["attention"], plain_calls["ssd"])
+            out = step(state, batch)
+            after = (*lm_launches(), plain_calls["attention"], plain_calls["ssd"])
+            per_step.append(tuple(a - b for a, b in zip(after, before)))
+            return out
+        return counted
+
+    T.make_train_step = make_counting_step
+    FAO.attention_ref = counting("attention", plain[0])
+    SSDO.ssd_intra_chunk_ref = counting("ssd", plain[1])
+    try:
+        return T.main(argv)
+    finally:
+        T.make_train_step = make_step
+        FAO.attention_ref, SSDO.ssd_intra_chunk_ref = plain
+
+
+def resume_run(cfg, dev, steps: int, ckpt=None) -> list[float]:
+    """The losses of ``steps`` Trainer steps as ``launch/train.py`` takes
+    them (AdamW lr 1e-3, warmup 20, seed 0, the stream from the restored
+    step), checkpointing every ``RESUME_STEPS`` steps into ``ckpt``."""
+    opt = TO.AdamWConfig(lr=1e-3, warmup=20)
+    tr = TT.Trainer(cfg, opt, TT.make_train_step(cfg, opt), checkpoint_dir=ckpt,
+                    checkpoint_every=RESUME_STEPS, device=dev)
+    state = tr.restore_or_init(0)
+    stream = LMD.SyntheticLMStream(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    data = (TT.batch_tensors(b, dev) for b in LMD.batches(stream, steps, start=state.step))
+    state, hist = tr.run(state, data, log_every=1)
+    del state
+    torch.cuda.empty_cache()
+    return [h["loss"] for h in hist]
+
+
+def train_phase(dev, cfg) -> dict:
+    """Phase 11: hymba-1.5b training at full width (see the docstring)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    fn = {"flash": check_flash_fn(gen, cfg), "ssd": check_ssd_fn(gen, cfg)}
+    torch.cuda.empty_cache()
+    full = check_full_width_grads(cfg, dev)
+
+    # (c) the main path through the CLI
+    per_step, plain_calls = [], {"attention": 0, "ssd": 0}
+    zero_lm_launches()
+    _, hist, summary = train_cli([
+        "--arch", "hymba-1.5b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+        "--seq", str(TRAIN_S), "--log-every", "1"], per_step, plain_calls)
+    launches = {"flash": dict(FA.flash_attention.launches_by_route),
+                "ssd": dict(SSD.ssd_intra_chunk.launches_by_route)}
+    layers = cfg.num_layers
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(h["loss"]) for h in hist),
+          f"train: losses {[h['loss'] for h in hist]}")
+    check(all(h["skipped"] == 0 for h in hist), f"train: skipped {[h['skipped'] for h in hist]}")
+    check(per_step == [(2 * layers, 2 * layers, layers, layers)] * TRAIN_STEPS,
+          f"train: per step (flash, ssd launches, plain attention, plain ssd calls) "
+          f"{per_step}, expected {(2 * layers, 2 * layers, layers, layers)} each")
+    want = 2 * layers * TRAIN_STEPS
+    check(launches["flash"]["tensor_cores"] == want and launches["ssd"]
+          == {"tensor_cores": want, "cuda_cores": 0},
+          f"train: launches by route {launches}, expected {want} each on tensor_cores")
+    secs = [h["sec"] for h in hist[1:]]
+    ms_step = 1e3 * float(np.median(secs))
+    # the profiled step's device time against an unprofiled step's wall
+    # time: the profiler lengthens the host's part of a step
+    idle = 1.0 - full["profiled_step"]["device_busy_ms"] / ms_step
+    print(f"[11] (c) launch/train.py --arch hymba-1.5b --steps {TRAIN_STEPS} --batch "
+          f"{TRAIN_B} --seq {TRAIN_S}: losses {[round(h['loss'], 4) for h in hist]}, none "
+          f"skipped; every step launched flash {2 * layers} and ssd {2 * layers} times "
+          f"(forward + recompute, all tensor-core) and called the plain attention and "
+          f"SSD {layers} times each (the backward's VJPs), no plain forward; "
+          f"{summary['tokens_per_s']:.1f} tok/s over the run, {ms_step:.1f} ms a step "
+          f"(median of steps 2-{TRAIN_STEPS}, spread {min(secs) * 1e3:.1f}-"
+          f"{max(secs) * 1e3:.1f}), peak {summary['peak_mem_gib']:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated); device busy "
+          f"{full['profiled_step']['device_busy_ms']:.2f} ms of a step (profiled), "
+          f"idle {idle:.1%} of the median step; {nvidia_smi()}", flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) checkpoint and resume, full width at depth RESUME_LAYERS
+    cfg_r = dataclasses.replace(cfg, num_layers=RESUME_LAYERS)
+    whole = resume_run(cfg_r, dev, 2 * RESUME_STEPS)
+    again = resume_run(cfg_r, dev, 2 * RESUME_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        first = resume_run(cfg_r, dev, RESUME_STEPS, d)
+        check(CKPT.latest_step(d) == RESUME_STEPS, f"resume: checkpoints {CKPT.all_steps(d)}")
+        second = resume_run(cfg_r, dev, RESUME_STEPS, d)
+    resumed = first + second
+    err = max(abs(a - b) for a, b in zip(resumed, whole))
+    spread = max(abs(a - b) for a, b in zip(again, whole))
+    bar = RESUME_REL * max(abs(x) for x in whole)
+    check(all(np.isfinite(resumed)) and err <= bar,
+          f"resume: losses {resumed} against {whole}: max error {err} > {bar}")
+    print(f"[11] (d) depth {RESUME_LAYERS}, full width: {RESUME_STEPS} steps, a checkpoint, "
+          f"{RESUME_STEPS} more restored from it: max |resumed - uninterrupted| loss "
+          f"{err:.3g} (bar {bar:.3g}, {RESUME_REL} of the largest loss); two uninterrupted "
+          f"runs differ by {spread:.3g}; losses {[round(x, 4) for x in whole]}", flush=True)
+    print(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"fn": fn, "full": full, "launches": launches, "hist": hist,
+            "train": {"tokens_per_s": summary["tokens_per_s"], "ms_per_step": ms_step,
+                      "sec_per_step": secs, "peak_mem_gib": summary["peak_mem_gib"],
+                      "idle_share": idle,
+                      "parameters": full["parameters"], "split": full["split"],
+                      "profiled_step": full["profiled_step"],
+                      "resume_max_abs_err": err, "resume_spread": spread}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2092,6 +2492,10 @@ def main() -> int:
     laned = lanes_phase(corpus, cfg, dev, 0, served.pop("snap"), served.pop("docs"),
                         served.pop("mixtures"))
 
+    # ---- 11. hymba-1.5b training at full width ---------------------------------
+    torch.cuda.empty_cache()
+    trained = train_phase(dev, lm_cfg)
+
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
@@ -2123,6 +2527,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
         "launches": fa_launches, "launches_by_route": fa_by_route,
         "max_abs_err": fa_err, "sdpa_max_abs_err": fa_sdpa_err, **fa_t,
+        # training (phase 11 (c)): launches over the CLI's steps, forward
+        # and recompute, and the backward Function at the layer's shape
+        "launches_train": trained["launches"]["flash"]["tensor_cores"],
+        "launches_train_per_step": 2 * lm_cfg.num_layers,
+        "train_backward": trained["fn"]["flash"],
         # float32, and bf16 at D in {16, 32}, stay on the CUDA cores
         "cuda_core_source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "shape": f"B={SERVE_B} S={SERVE_S} Hq={hq} Hkv={hkv} D={hd} bf16 causal window={win}",
@@ -2132,6 +2541,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd/ssd.py:31",
         "launches": ssd_launches, "launches_by_route": ssd_by_route,
         "max_abs_err": ssd_err, "oracle_max_abs_err": ssd_oracle_err, **ssd_t,
+        "launches_train": trained["launches"]["ssd"]["tensor_cores"],
+        "launches_train_per_step": 2 * lm_cfg.num_layers,
+        "train_backward": trained["fn"]["ssd"],
         # the earlier design, the route of shapes the tensor-core one refuses
         "cuda_core_source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
         "shape": f"B={SERVE_B} S={SERVE_S} H={h_ssd} P={p_ssd} N={n_ssd} chunk={cl} f32",
@@ -2141,6 +2553,7 @@ def main() -> int:
         "spread": spread},
         "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale},
         "stream_tiled": streamed["tiled"], "serve_hdp": served["serve_hdp"],
+        "train": trained["train"],
         "stream_lanes": {k: laned[k] for k in (
             "sec_per_iter", "delta_reduce_mb_per_iter", "block_exchange", "metrics",
             "tiled_threads")}}),

@@ -4,14 +4,57 @@ in PyTorch.
 
   y_t = y_intra_t + C_t (decay_from_chunk_start_t * h_chunkstart)
   H_c = exp(sum_chunk a) H_{c-1} + st_c
+
+Training differentiates the intra-chunk pass through
+``SSDIntraChunkFn``: the kernel forward, and the vector-Jacobian product
+of the plain version ``ssd_intra_chunk_ref`` in the backward pass, as
+the reference's trainer differentiates its plain ``ssd_chunked`` and
+no Pallas kernel. The inter-chunk scan is plain PyTorch and
+differentiates as it is.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssd.ref import pad_sequence
+from repro_torch.kernels.ssd.ref import pad_sequence, ssd_intra_chunk_ref
 from repro_torch.kernels.ssd.ssd import ssd_intra_chunk
+
+
+class SSDIntraChunkFn(torch.autograd.Function):
+    """``ssd_intra_chunk`` forward, returning (y_intra, st, dec); the
+    plain version's gradient. B and C may arrive as stride-0 views
+    (shared by the heads): their gradients come back in the views' shape
+    and autograd's ``expand`` backward sums them over the heads."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, chunk: int):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        ctx.chunk = chunk
+        return ssd_intra_chunk(x, dt, a, bmat, cmat, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, needs)]
+            outs = ssd_intra_chunk_ref(*ins, chunk=ctx.chunk)
+        used = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in used], wrt,
+                                       [g for _, g in used], allow_unused=True))
+        return (*(next(got) if n else None for n in needs), None)
+
+
+def _intra_chunk(x, dt, a, bmat, cmat, chunk: int):
+    """``ssd_intra_chunk``, through ``SSDIntraChunkFn`` when an input
+    needs a gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, bmat, cmat)):
+        return SSDIntraChunkFn.apply(x, dt, a, bmat, cmat, chunk)
+    return ssd_intra_chunk(x, dt, a, bmat, cmat, chunk=chunk)
 
 
 def ssd(x, dt, a, bmat, cmat, h0=None, *, chunk: int = 64):
@@ -25,7 +68,7 @@ def ssd(x, dt, a, bmat, cmat, h0=None, *, chunk: int = 64):
     if pad:
         x, dt, bmat, cmat = pad_sequence(pad, x, dt, bmat, cmat)
     nc = (s + pad) // chunk
-    y_intra, st, dec = ssd_intra_chunk(x, dt, a, bmat, cmat, chunk=chunk)
+    y_intra, st, dec = _intra_chunk(x, dt, a, bmat, cmat, chunk)
 
     # chunk-level decays: exp(sum of a over chunk) per (B, NC, H)
     a_steps = dt.float() * a[None, None, :]

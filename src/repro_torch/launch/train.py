@@ -1,6 +1,10 @@
-"""HDP training driver (counterpart of the ``--hdp`` path of
-``repro/launch/train.py``), on one device, with sweep lanes on several.
+"""Training driver (counterpart of ``repro/launch/train.py``): the HDP
+sampler on one device, with sweep lanes on several, and LM training.
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+      --steps 8 --batch 4 --seq 512                 # LM, on the card
+  ... --arch hymba-1.5b --smoke --device cpu --steps 3   # reduced, CPU
+  ... --ckpt DIR --ckpt-every 50                    # resumable
   PYTHONPATH=src python -m repro_torch.launch.train --hdp ap --scale 0.01 \
       --iters 2 --topics 20 --max-len 64            # on the card
   ... --device cpu                                  # plain versions, CPU
@@ -19,6 +23,13 @@ the chain is bitwise ``--devices 1``'s). ``--trace`` writes the run's
 spans as a Chrome trace, ``--metrics`` appends metrics snapshots (JSONL,
 ``launch/monitor.py`` reads them) and turns on the per-iteration health
 gauges.
+
+``--arch`` takes ``--steps`` AdamW steps on the synthetic LM stream
+(``data/lm_data.py``), with both LM kernels on the card in every
+forward and every recompute, and prints one JSON line: the reference's
+keys (arch, steps, first_loss, final_loss, tokens_per_s,
+deadline_breaches, history), the device and the peak device memory.
+A rerun with the same ``--ckpt`` resumes from its latest checkpoint.
 """
 
 from __future__ import annotations
@@ -32,13 +43,60 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.configs import get_config
 from repro_torch.core import hdp as H
 from repro_torch.core.streaming import StreamingHDP
+from repro_torch.data.lm_data import SyntheticLMStream, batches
 from repro_torch.data.stream import ShardedCorpusStore
 from repro_torch.data.synthetic import paper_corpus
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.hdp_z import hdp_z as HZ
+from repro_torch.kernels.ssd import ssd as SSD
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.trainer import Trainer, batch_tensors, make_train_step
+
+
+def train_lm(args: argparse.Namespace):
+    """``args.steps`` AdamW steps of ``args.arch`` on the synthetic LM
+    stream, resuming from ``args.ckpt``'s latest checkpoint. The clock
+    runs from a synchronize after the kernels' build and the model's
+    init to the last step's end; ``peak_mem_gib`` is the card's peak
+    over the same span. Returns the final state, the logged history
+    and the printed summary."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    stream = SyntheticLMStream(cfg.vocab_size, args.batch, args.seq,
+                               prefix_len=cfg.prefix_len, d_model=cfg.d_model)
+    opt = AdamWConfig(lr=args.lr, warmup=20)
+    if device.type == "cuda":
+        _build.build_all([*FA.SOURCES, *SSD.SOURCES])
+    trainer = Trainer(cfg, opt, make_train_step(cfg, opt),
+                      checkpoint_dir=args.ckpt,
+                      checkpoint_every=args.ckpt_every or 50,
+                      step_deadline_s=args.deadline, device=device)
+    state = trainer.restore_or_init(args.seed)
+    synchronize(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    data = (batch_tensors(b, device)
+            for b in batches(stream, args.steps, start=state.step))
+    state, history = trainer.run(state, data, log_every=args.log_every)
+    dt = time.perf_counter() - t0
+    summary = {
+        "arch": cfg.name, "steps": args.steps,
+        "first_loss": history[0]["loss"] if history else None,
+        "final_loss": history[-1]["loss"] if history else None,
+        "tokens_per_s": args.steps * args.batch * args.seq / dt,
+        "deadline_breaches": trainer.deadline_breaches,
+        "history": history, "device": str(device),
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                         if device.type == "cuda" else None),
+    }
+    print(json.dumps(summary), flush=True)
+    return state, history, summary
 
 
 def hdp_corpus_config(args: argparse.Namespace):
@@ -161,7 +219,7 @@ def train_hdp_streaming(args: argparse.Namespace):
                 "flag_tokens": int(state.n[-1].sum()),
             })
             print(history[-1], flush=True)
-        if args.ckpt and (i + 1) % args.ckpt_every == 0:
+        if args.ckpt and (i + 1) % (args.ckpt_every or 1) == 0:
             stream.save(args.ckpt, state)
     summary = {
         "corpus": args.hdp, "tokens": store.num_tokens, "mode": "streaming",
@@ -180,7 +238,18 @@ def train_hdp_streaming(args: argparse.Namespace):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--hdp", required=True, help="ap|cgcbib|neurips|pubmed")
+    what = ap.add_mutually_exclusive_group(required=True)
+    what.add_argument("--hdp", help="ap|cgcbib|neurips|pubmed")
+    what.add_argument("--arch", help="LM architecture to train (hymba-1.5b)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced config (--arch)")
+    ap.add_argument("--steps", type=int, default=50, help="AdamW steps (--arch)")
+    ap.add_argument("--batch", type=int, default=8, help="sequences a step (--arch)")
+    ap.add_argument("--seq", type=int, default=128, help="tokens a sequence (--arch)")
+    ap.add_argument("--lr", type=float, default=1e-3, help="peak learning rate (--arch)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="seconds a step may take before it counts as a "
+                         "deadline breach (--arch)")
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scale", type=float, default=0.02)
@@ -198,9 +267,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-docs", type=int, default=1024,
                     help="documents a block (--stream)")
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint directory; a rerun resumes from it (--stream)")
-    ap.add_argument("--ckpt-every", type=int, default=1,
-                    help="iterations between boundary checkpoints (--stream)")
+                    help="checkpoint directory; a rerun resumes from it "
+                         "(--stream, --arch)")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="iterations between boundary checkpoints (--stream; "
+                         "default 1), steps between checkpoints (--arch; "
+                         "default 50)")
     ap.add_argument("--ckpt-every-blocks", type=int, default=None,
                     help="blocks between mid-iteration checkpoints (--stream)")
     ap.add_argument("--z-store", default="ram", choices=("ram", "disk"),
@@ -241,6 +313,8 @@ def main(argv: list[str] | None = None):
     obs.setup(trace=args.trace, metrics_path=args.metrics,
               metrics_every_s=args.metrics_every)
     try:
+        if args.arch:
+            return train_lm(args)
         return (train_hdp_streaming if args.stream else train_hdp)(args)
     finally:
         obs.finalize()

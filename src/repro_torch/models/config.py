@@ -1,12 +1,14 @@
 """LM architecture configuration (counterpart of
 ``repro/models/config.py``).
 
-The fields are the reference's that change what the ported blocks
-compute. Its fields that only steer XLA or sharding (``act_shard_seq``,
-``act_spec``, ``remat``, ``scan_layers``, ``use_kernels``) have no
-counterpart: on the card the port always launches its kernels. Its MoE
-fields and ``loss_chunk`` come with the moe block and the training path
-that read them.
+The fields are the reference's that change what the ported blocks and
+the loss compute, and ``remat``, which steers memory only: training
+recomputes each block's forward in the backward pass
+(``torch.utils.checkpoint``) instead of keeping its activations. The
+reference's fields that only steer XLA or sharding (``act_shard_seq``,
+``act_spec``, ``scan_layers``, ``use_kernels``) have no counterpart: on
+the card the port always launches its kernels. Its MoE fields come with
+the moe block that reads them.
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ class LMConfig:
     norm_eps: float = 1e-6
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    # training: recompute each block in the backward pass; sequence
+    # positions per chunk of the vocabulary cross-entropy
+    remat: bool = True
+    loss_chunk: int = 1024
     # provenance note (source + any deviations from the published config)
     source: str = ""
 
@@ -82,4 +88,5 @@ class LMConfig:
             window=min(self.window, 16) if self.window else None,
             prefix_len=min(self.prefix_len, 4),
             ssd_chunk=8,
+            loss_chunk=32,
         )

@@ -6,6 +6,8 @@ params)``): layers stacked on a leading L axis, the reference's layouts
 (``wq`` (d, Hq, Dh), ``wo`` (Hq, Dh, d), ``in_proj`` (d, .), ``conv_w``
 (4, C), the tied ``embed.table`` (V, d)). It loads them into a
 ``CausalLM`` so that both compute the same function.
+``train_state_from_numpy`` does the same for the reference's training
+state (parameters, AdamW moments, step).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import LMConfig
 from repro_torch.models.lm import CausalLM
+from repro_torch.train.trainer import TrainState, train_state_for
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -36,15 +39,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield name, val
 
 
-def lm_params_from_numpy(params: Mapping[str, Any], cfg: LMConfig,
-                         device: torch.device | str = "cuda") -> CausalLM:
-    """A ``CausalLM`` on ``device`` (the card unless the caller passes
-    "cpu") holding the reference's parameters (copied). Every name,
-    shape and dtype must match the port's model exactly."""
-    dev = resolve_device(device)
-    model = CausalLM(cfg, torch.Generator(device=dev).manual_seed(0))
+def _named(tree: Mapping[str, Any], cfg: LMConfig) -> dict[str, torch.Tensor]:
+    """The reference's tree as CPU tensors under the port's parameter
+    names, the stacked layers split into ``blocks.{i}.*``."""
     state = {}
-    for name, arr in _flatten(params):
+    for name, arr in _flatten(tree):
         t = _tensor(arr)
         if name.startswith("blocks."):
             if t.shape[0] != cfg.num_layers:
@@ -55,6 +54,17 @@ def lm_params_from_numpy(params: Mapping[str, Any], cfg: LMConfig,
                 state[f"blocks.{i}.{rest}"] = t[i]
         else:
             state[name] = t
+    return state
+
+
+def lm_params_from_numpy(params: Mapping[str, Any], cfg: LMConfig,
+                         device: torch.device | str = "cuda") -> CausalLM:
+    """A ``CausalLM`` on ``device`` (the card unless the caller passes
+    "cpu") holding the reference's parameters (copied). Every name,
+    shape and dtype must match the port's model exactly."""
+    dev = resolve_device(device)
+    model = CausalLM(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = _named(params, cfg)
     own = model.state_dict()
     for name, t in state.items():
         if name in own and own[name].dtype != t.dtype:
@@ -62,3 +72,22 @@ def lm_params_from_numpy(params: Mapping[str, Any], cfg: LMConfig,
                             f"{own[name].dtype}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def train_state_from_numpy(params: Mapping[str, Any], mu: Mapping[str, Any],
+                           nu: Mapping[str, Any], step: int, cfg: LMConfig,
+                           device: torch.device | str = "cuda") -> TrainState:
+    """A ``TrainState`` on ``device`` from the reference's ``TrainState``
+    fields as numpy trees (``params``, the float32 moments ``mu`` and
+    ``nu``) and its step."""
+    model = lm_params_from_numpy(params, cfg, device)
+    dev = model.embed.table.device
+    state = train_state_for(model, int(step))
+    for tree, dst in ((mu, state.mu), (nu, state.nu)):
+        got = _named(tree, cfg)
+        if got.keys() != dst.keys():
+            raise ValueError("the moments' names differ from the model's: "
+                             f"{sorted(got.keys() ^ dst.keys())}")
+        for name, t in got.items():
+            dst[name].copy_(t.to(dev, torch.float32))
+    return state

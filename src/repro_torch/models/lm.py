@@ -1,15 +1,23 @@
-"""CausalLM: full-sequence forward, prefill and decode (counterpart of
-``repro/models/lm.py``; training and the loss are not ported yet).
+"""CausalLM: full-sequence forward, prefill, decode and the training
+loss (counterpart of ``repro/models/lm.py``).
 
 Layers are an ``nn.ModuleList`` of ``Block``s, one per layer, where the
 reference stacks them under one scan. A cache is a list with one dict
-per layer.
+per layer. In training (``cfg.remat``, gradients on) each block runs
+under ``torch.utils.checkpoint``: only the residual stream between
+blocks is kept, and the backward pass recomputes one block at a time,
+as the reference's ``jax.checkpoint(..., nothing_saveable)``.
+
+``lm_loss`` computes the vocabulary cross-entropy in sequence chunks of
+``cfg.loss_chunk`` (each checkpointed), so the (B, S, V) float32 logits
+are never held at once.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as BLK
 from repro_torch.models.config import LMConfig
@@ -41,8 +49,14 @@ class CausalLM(nn.Module):
     def forward_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         """Final hidden states (B, S, D) of the full-sequence forward."""
         x, positions = self._inputs(tokens)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = BLK.block_train(blk, self.cfg, x, positions)
+            if remat:
+                # the block draws no random numbers: no RNG state to keep
+                x = checkpoint(BLK.block_train, blk, self.cfg, x, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = BLK.block_train(blk, self.cfg, x, positions)
         return rmsnorm(self.final_norm, x, self.cfg.norm_eps)
 
     def prefill(self, tokens: torch.Tensor, cache_len: int):
@@ -73,3 +87,60 @@ class CausalLM(nn.Module):
         dev = self.embed.table.device
         return [BLK.init_cache(self.cfg, batch, cache_len, dev)
                 for _ in range(self.cfg.num_layers)]
+
+
+# -- training loss ---------------------------------------------------------------
+
+def _largest_divisor_leq(s: int, target: int) -> int:
+    for c in range(min(target, s), 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+class _GradDtypeBarrier(torch.autograd.Function):
+    """Identity whose gradient is cast back to the input's dtype (the
+    reference's ``_grad_dtype_barrier``): the float32 logits' gradient
+    reaches the bf16 hidden states, and the backward chain below them
+    runs in the model's dtype. The identity in float32."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def _chunk_loss(table_p, hc, tc, mc):
+    """Summed cross-entropy of one chunk and its mask count."""
+    logits = unembed(table_p, hc)  # (B, c, V) float32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return torch.sum((lse - ll) * mc), torch.sum(mc)
+
+
+def lm_loss(model: CausalLM, tokens: torch.Tensor, targets: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over the positions ``mask`` keeps.
+    tokens, targets, mask: (B, S). The vocabulary is reduced in
+    ``_largest_divisor_leq(S, cfg.loss_chunk)``-position chunks, each
+    recomputed in the backward pass, not stored."""
+    h = _GradDtypeBarrier.apply(model.forward_hidden(tokens))
+    b, s, _ = h.shape
+    chunk = _largest_divisor_leq(s, model.cfg.loss_chunk)
+    mf = mask.float()
+    losses, counts = [], []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        args = (model.embed, h[:, sl], targets[:, sl], mf[:, sl])
+        if torch.is_grad_enabled():
+            loss, count = checkpoint(_chunk_loss, *args, use_reentrant=False,
+                                     preserve_rng_state=False)
+        else:
+            loss, count = _chunk_loss(*args)
+        losses.append(loss)
+        counts.append(count)
+    return torch.stack(losses).sum() / torch.clamp_min(torch.stack(counts).sum(), 1.0)

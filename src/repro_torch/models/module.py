@@ -18,8 +18,9 @@ from torch import nn
 
 class Params(nn.Module):
     """A named group of parameters, read as attributes (``p.wq``) where
-    the reference reads ``p["wq"]``. The port serves only, so no
-    parameter requires a gradient."""
+    the reference reads ``p["wq"]``. They start without gradients, as
+    serving wants them; the trainer turns gradients on
+    (``train/trainer.py::init_train_state``)."""
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()

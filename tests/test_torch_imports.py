@@ -38,7 +38,28 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 67  # every module was reached
+    assert int(out.stdout.strip()) >= 70  # every module was reached
+
+
+LM_TRAIN_MODULES = (
+    "repro_torch.train.optimizer", "repro_torch.train.trainer",
+    "repro_torch.data.lm_data", "repro_torch.models.convert",
+    "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.ssd.ops",
+)
+
+
+def test_lm_train_modules_import_no_jax_and_no_repro():
+    """The LM training path's modules, alone in a fresh process."""
+    code = (
+        "import importlib, sys\n"
+        f"for n in {LM_TRAIN_MODULES!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 STREAMING_MODULES = (
@@ -120,6 +141,46 @@ def test_cli_without_card_exits_nonzero_with_message():
     assert out.returncode != 0
     assert "no CUDA device is present" in out.stderr
     assert "{" not in out.stdout  # no result was printed
+
+
+TRAIN_LM = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "hymba-1.5b", "--smoke", "--steps", "3", "--batch", "2", "--seq",
+            "32", "--log-every", "1"]
+
+
+def test_lm_train_cli_runs_on_cpu_and_prints_final_json():
+    out = subprocess.run(TRAIN_LM + ["--device", "cpu"], env=_env(),
+                         capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    for key in ("arch", "steps", "first_loss", "final_loss", "tokens_per_s",
+                "deadline_breaches", "history", "device", "peak_mem_gib"):
+        assert key in summary, key
+    assert summary["arch"] == "hymba-1.5b" and summary["device"] == "cpu"
+    assert summary["steps"] == 3 and summary["tokens_per_s"] > 0
+    assert [h["step"] for h in summary["history"]] == [1, 2, 3]
+    assert all(h["skipped"] == 0 for h in summary["history"])
+    assert summary["first_loss"] == summary["history"][0]["loss"]
+    assert summary["peak_mem_gib"] is None  # no card
+
+
+def test_lm_train_cli_without_card_exits_nonzero_with_message():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device runs")
+    out = subprocess.run(TRAIN_LM, env=_env(), capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "no CUDA device is present" in out.stderr
+    assert "{" not in out.stdout  # no result was printed
+
+
+def test_train_cli_needs_exactly_one_of_hdp_and_arch():
+    from repro_torch.launch import train as T
+
+    for argv in ([], ["--hdp", "ap", "--arch", "hymba-1.5b"]):
+        with pytest.raises(SystemExit) as e:
+            T.build_parser().parse_args(argv)
+        assert e.value.code == 2
 
 
 SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
