@@ -179,6 +179,27 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      the peak device memory; (d) at depth 4, full width: 4 steps, a
      checkpoint, 4 more restored from it, the losses within ``RESUME_REL``
      of an uninterrupted 8-step run (whose rerun's spread is printed).
+ 12. paligemma-3b and the flash kernels at head dims 192 and 256: (a) both
+     routes at paligemma's prefill shape (B=4, S=768 = prefix 256 + prompt
+     512, 8/1 heads, D=256) and at nemotron-4-340b's heads (B=1, S=512,
+     96/8 heads, D=192), causal with and without a window of 200, bf16
+     on the tensor cores and float32 on the CUDA cores, against the
+     plain version (3e-2, 2e-5), each launch on the route ``FA.route``
+     gives; each route timed at both shapes by profiler device time and
+     by events beside SDPA (timed only), the plain version and
+     ``flash_bound_ms``; (b) the main path, ``launch/serve.py --arch
+     paligemma-3b`` at its published width and depth (18 layers, d_model
+     2048, vocab 257,216, bf16, seed 0): 8 requests of 512 tokens after a
+     256-position prefix of embeddings, batches of 4, 32 greedy tokens;
+     the flash launches zeroed just before and read just after, 18 layers
+     x 2 batches = 36, all on the tensor cores; every logit finite, every
+     token in the vocabulary; prefill and decode tok/s and peak memory;
+     (c) float32 at full width and depth 4: decode logits after a
+     prefixed prefill against the last logits of a prefill one token
+     longer, within ``CONSISTENCY_ATOL``, every attention on the CUDA-core
+     route at D=256; (d) ``launch/topic_lm.py`` on the card (the port's
+     sampler, 100 hdp_z sweeps, its mixtures as the LM's prefix): the
+     conditioned loss below the unconditioned one.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -329,6 +350,16 @@ FN_GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # sums (atomics in the embedding's backward) may differ between runs
 RESUME_REL = 1e-3
 
+# paligemma-3b serving (phase 12): requests, batch, prompt and generated
+# tokens of the main path; the depth of the float32 consistency check
+PALI_REQUESTS, PALI_B, PALI_PROMPT, PALI_GEN = 8, 4, 512, 32
+PALI_F32_LAYERS = 4
+# nemotron-4-340b's attention heads (96 query, 8 kv, D=192; the reference's
+# configs/nemotron_4_340b.py) at B=1, S=512: its model is not ported, its
+# head dim is; and the window of (a)'s windowed cases
+NEMO_HEADS, NEMO_B, NEMO_S = (96, 8, 192), 1, 512
+PHASE12_WINDOW = 200
+
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
 # one shape on the warp route: 32 documents' uint16 m (256,000 B at
@@ -449,6 +480,12 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_kernels(prof) -> list:
+    """The profiler's CUDA kernel records, by name."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def device_time_ms(fn, reps: int, per_call: int | None = None) -> float:
     """Device time of ``fn`` a call: the time of the CUDA kernels that
     ``torch.profiler`` records over ``reps`` calls after one warm-up call,
@@ -457,7 +494,7 @@ def device_time_ms(fn, reps: int, per_call: int | None = None) -> float:
     call's host cost exceeds its device time. The profiler can miss
     kernel records: a window must record ``per_call`` kernels a call
     (when given), else a whole number a call, or it is measured again,
-    up to three times."""
+    up to three times; each miss prints the kernels it recorded."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -466,13 +503,13 @@ def device_time_ms(fn, reps: int, per_call: int | None = None) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+        evts = cuda_kernels(prof)
         kernels = sum(e.count for e in evts)
         if kernels and (kernels == reps * per_call if per_call else kernels % reps == 0):
             return sum(e.self_device_time_total for e in evts) / 1e3 / reps
         print(f"[7] the profiler recorded {kernels} kernels over {reps} calls; "
-              f"measuring again", flush=True)
+              f"measuring again; recorded: " + ", ".join(
+                  f"{e.key[:60]} x{e.count}" for e in cuda_kernels(prof)), flush=True)
     fail(f"the profiler recorded {kernels} kernels over {reps} calls, three times")
 
 
@@ -575,7 +612,7 @@ def flash_inputs(gen, b, hq, hkv, s, d, dtype):
     return one(hq), one(hkv), one(hkv)
 
 
-def check_flash(gen, b, hq, hkv, s, d, dtype, causal, window, sdpa=False):
+def check_flash(gen, b, hq, hkv, s, d, dtype, causal, window, sdpa=False, phase="5"):
     """Kernel against plain version on one case, the launch on the route
     ``FA.route`` gives; returns the kernel's max error and, with
     ``sdpa`` (a case where SDPA computes the same function), SDPA's max
@@ -599,7 +636,7 @@ def check_flash(gen, b, hq, hkv, s, d, dtype, causal, window, sdpa=False):
     if sdpa:
         lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
         lib_err = float((lib.float() - want.float()).abs().max())
-    print(f"[5] {tag} ({route}): max |kernel - plain| {err:.3g}" + (
+    print(f"[{phase}] {tag} ({route}): max |kernel - plain| {err:.3g}" + (
         f"; max |SDPA - plain| {lib_err:.3g}" if sdpa else ""), flush=True)
     return err, lib_err
 
@@ -2064,6 +2101,194 @@ def train_phase(dev, cfg) -> dict:
                       "resume_max_abs_err": err, "resume_spread": spread}}
 
 
+def time_flash(gen, b, hq, hkv, s, d, dtype, route) -> dict:
+    """12 (a): one route at one shape, causal: the kernel by profiler
+    device time and by events, SDPA the same ways (timed only; the port
+    never calls it), the plain version by events, and the bound."""
+    q, k, v = flash_inputs(gen, b, hq, hkv, s, d, dtype)
+    kern = lambda: FA._launch(route, q, k, v, True, None)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    err = float((kern().float() - attention_ref(q, k, v).float()).abs().max())
+    lib_err = float((sdpa().float() - attention_ref(q, k, v).float()).abs().max())
+    check(err <= FLASH_ATOL[dtype], f"flash {route} D={d}: max error {err}")
+    t = dict(route=route, head_dim=d, dtype=str(dtype).replace("torch.", ""),
+             shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal",
+             max_abs_err=err, library_max_abs_err=lib_err,
+             ms=device_time_ms(kern, 20, per_call=1), event_ms=cuda_time_ms(kern, 20),
+             library_ms=device_time_ms(sdpa, 20), library_event_ms=cuda_time_ms(sdpa, 20),
+             plain_ms=cuda_time_ms(lambda: attention_ref(q, k, v), 3))
+    t["bound_ms"], t["bound_by"] = flash_bound_ms(b, hq, hkv, s, d, q.element_size(),
+                                                  True, None)
+    print(f"[12] (a) flash {route} {t['dtype']} {t['shape']}: device time {t['ms']:.4f} ms "
+          f"(events {t['event_ms']:.4f}), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+          f"{t['ms'] / t['bound_ms']:.1f}x; SDPA {t['library_ms']:.4f} ms (events "
+          f"{t['library_event_ms']:.4f}, max |SDPA - plain| {lib_err:.3g}); plain "
+          f"{t['plain_ms']:.4f} ms", flush=True)
+    return t
+
+
+def phase12_shapes(cfg) -> dict:
+    """Head dim: (B, Hq, Hkv, S, D) of 12 (a): paligemma's prefill
+    (prefix + prompt) and nemotron's heads."""
+    return {256: (PALI_B, cfg.num_heads, cfg.num_kv_heads, cfg.prefix_len + PALI_PROMPT,
+                  cfg.head_dim),
+            192: (NEMO_B, *NEMO_HEADS[:2], NEMO_S, NEMO_HEADS[2])}
+
+
+def flash_timings() -> None:
+    """12 (a)'s timings, run by ``paligemma_phase`` in a process of its
+    own: by phase 12 the profiler in the script's process loses records
+    (after phase 11 it kept 16 of 20 launches of one kernel, and none of
+    one launch), while a fresh process keeps them all. Prints the [12]
+    lines, then one JSON list of ``time_flash``'s results."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = [time_flash(gen, *shape, dtype, FA.route(dtype, d))
+           for d, shape in phase12_shapes(get_config("paligemma-3b")).items()
+           for dtype in (torch.bfloat16, torch.float32)]
+    print(json.dumps(out), flush=True)
+
+
+def paligemma_phase(dev) -> dict:
+    """Phase 12: the flash kernels at head dims 192 and 256, paligemma-3b
+    served at full width, float32 decode after a prefix at depth 4, and
+    the topic-conditioned LM on the card (see the docstring)."""
+    from repro_torch.launch import topic_lm as TOPIC
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cfg = get_config("paligemma-3b")
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = phase12_shapes(cfg)
+    check(cfg.head_dim == 256 and shapes[256] == (4, 8, 1, 768, 256),
+          f"paligemma-3b's prefill shape {shapes[256]}")
+    for line in _build.ptxas_report(FA.SOURCE).splitlines():
+        if re.search(r"registers|spill", line):
+            print(f"[12] flash_attention ptxas: {line.strip()}", flush=True)
+
+    # (a) both routes at both head dims against the plain version, timed
+    errs = {}
+    for d, shape in shapes.items():
+        check(FA.route(bf16, d) == "tensor_cores" and FA.route(f32, d) == "cuda_cores",
+              f"flash routes at D={d}: {FA.route(bf16, d)}, {FA.route(f32, d)}")
+        for dtype in (bf16, f32):
+            for window in (None, PHASE12_WINDOW):
+                err, _ = check_flash(gen, *shape, dtype, True, window, phase="12")
+                errs[(d, str(dtype))] = max(errs.get((d, str(dtype)), 0.0), err)
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as C; C.flash_timings()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(child.returncode == 0, f"12 (a) timings: exit {child.returncode}\n"
+          f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+    timed = json.loads(lines[-1])
+    torch.cuda.empty_cache()
+
+    # (b) the main path: launch/serve.py at full width and depth
+    args = SV.build_parser().parse_args([
+        "--arch", "paligemma-3b", "--requests", str(PALI_REQUESTS), "--batch",
+        str(PALI_B), "--prompt-len", str(PALI_PROMPT), "--gen", str(PALI_GEN),
+        "--seed", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_launches()
+    outputs, served = SV.serve(args)
+    launches = FA.flash_attention.launches
+    by_route = dict(FA.flash_attention.launches_by_route)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    batches = PALI_REQUESTS // PALI_B
+    want = cfg.num_layers * batches
+    check(launches == want and by_route == {"tensor_cores": want, "cuda_cores": 0},
+          f"paligemma serve: flash {launches} launches, by route {by_route}, expected "
+          f"{want} on tensor_cores")
+    check(SSD.ssd_intra_chunk.launches == 0, "paligemma serve: an SSD launch")
+    check(served["logits_finite"], "paligemma serve: a logit is not finite")
+    check(len(outputs) == PALI_REQUESTS and all(len(o) == PALI_GEN for o in outputs),
+          f"paligemma serve: not {PALI_REQUESTS} requests of {PALI_GEN} tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outputs for t in o),
+          "paligemma serve: a token outside the vocabulary")
+    n_params = (cfg.vocab_size * cfg.d_model + cfg.d_model + cfg.num_layers * (
+        2 * cfg.d_model + cfg.d_model * cfg.head_dim * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+        + 3 * cfg.d_model * cfg.d_ff))
+    print(f"[12] (b) served paligemma-3b ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads at D={cfg.head_dim}, GeGLU d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_params:,} parameters, bf16, seed 0): "
+          f"{PALI_REQUESTS} requests, batch {PALI_B}, prefix {cfg.prefix_len} + prompt "
+          f"{PALI_PROMPT}, gen {PALI_GEN}, cache {SV.cache_length(cfg, PALI_PROMPT, PALI_GEN)}; "
+          f"flash launches {launches} (by route {by_route}); prefill "
+          f"{served['prefill_tok_s']} tok/s, decode {served['decode_tok_s']} tok/s "
+          f"({batches - 1} timed batch after 1 warm-up); peak "
+          f"{peak_gib:.3f} GiB (torch.cuda.max_memory_allocated); sample "
+          f"{served['sample_output']}", flush=True)
+    torch.cuda.empty_cache()
+
+    # (c) float32 at full width, depth 4: decode after a prefixed prefill
+    # against the last logits of a prefill one token longer; the CUDA-core
+    # route at D=256 inside the model
+    cfg32 = dataclasses.replace(cfg, num_layers=PALI_F32_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    zero_lm_launches()
+    with torch.inference_mode():
+        model = CausalLM(cfg32, torch.Generator(device=dev).manual_seed(1))
+        toks = torch.randint(0, cfg32.vocab_size, (2, PALI_PROMPT + 1), generator=gen,
+                             device=dev)
+        emb = torch.randn((2, cfg32.prefix_len, cfg32.d_model), generator=gen, device=dev)
+        cache_len = cfg32.prefix_len + PALI_PROMPT + 1
+        _, cache = model.prefill(toks[:, :PALI_PROMPT], cache_len, emb)
+        dec_logits, _ = model.decode_step(toks[:, PALI_PROMPT], cache,
+                                          cfg32.prefix_len + PALI_PROMPT)
+        full_logits, _ = model.prefill(toks, cache_len, emb)
+    del model, cache
+    f32_by_route = dict(FA.flash_attention.launches_by_route)
+    cons_err = float((dec_logits - full_logits).abs().max())
+    cons_scale = float(full_logits.abs().max())
+    check(bool(torch.isfinite(dec_logits).all()), "paligemma f32: non-finite logits")
+    check(f32_by_route == {"tensor_cores": 0, "cuda_cores": 2 * PALI_F32_LAYERS},
+          f"paligemma f32: flash launches by route {f32_by_route}")
+    check(cons_err <= CONSISTENCY_ATOL,
+          f"paligemma f32: max |decode - prefill(S+1)| {cons_err} > {CONSISTENCY_ATOL}")
+    print(f"[12] (c) float32, full width, depth {PALI_F32_LAYERS}, prefix "
+          f"{cfg32.prefix_len} + {PALI_PROMPT} tokens: max |decode logits - prefill(S+1) "
+          f"logits| = {cons_err} (largest |logit| {cons_scale}; atol {CONSISTENCY_ATOL}); "
+          f"flash launches by route {f32_by_route}", flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) the topic-conditioned LM: the port's sampler on the card (hdp_z),
+    # its mixtures as a one-position prefix of a small LM
+    zero_lm_launches()
+    z_before = hdp_z_cuda.launches
+    t0 = time.perf_counter()
+    topic = TOPIC.run("cuda")
+    topic_s = time.perf_counter() - t0
+    topic["hdp_z_launches"] = hdp_z_cuda.launches - z_before
+    topic["flash_launches_by_route"] = dict(FA.flash_attention.launches_by_route)
+    check(topic["hdp_z_launches"] == 100, f"topic LM: {topic['hdp_z_launches']} sweeps")
+    check(np.isfinite(topic["conditioned_loss"]) and np.isfinite(topic["unconditioned_loss"]),
+          f"topic LM: losses {topic}")
+    check(topic["conditioned_loss"] < topic["unconditioned_loss"],
+          f"topic LM: conditioned loss {topic['conditioned_loss']} is not below the "
+          f"unconditioned {topic['unconditioned_loss']}")
+    print(f"[12] (d) topic-conditioned LM on the card: {topic['active_topics']} active "
+          f"topics after 100 Gibbs iterations ({topic['hdp_z_launches']} hdp_z sweeps); "
+          f"loss unconditioned {topic['unconditioned_loss']:.4f}, topic-conditioned "
+          f"{topic['conditioned_loss']:.4f}, gain {topic['gain']:.4f}; flash launches by "
+          f"route {topic['flash_launches_by_route']}; {topic_s:.1f} s", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[12] phase 12 took {phase_s:.1f} s", flush=True)
+    main_t = timed[0]
+    return {"launches": launches, "launches_by_route": by_route,
+            "max_abs_err": errs[(256, str(bf16))], "timed": timed, "main": main_t,
+            "errs": {f"D={d} {dt.replace('torch.', '')}": e for (d, dt), e in errs.items()},
+            "serve": {k: served[k] for k in ("prefill_tok_s", "decode_tok_s",
+                                              "prefill_tok_s_per_batch",
+                                              "decode_tok_s_per_batch", "sample_output")}
+            | {"peak_mem_gib": peak_gib, "parameters": n_params},
+            "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale,
+                                       "launches_by_route": f32_by_route},
+            "topic_lm": topic, "seconds": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2496,6 +2721,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = train_phase(dev, lm_cfg)
 
+    # ---- 12. paligemma-3b serving, the flash kernels at D 192 and 256 --------
+    torch.cuda.empty_cache()
+    pali = paligemma_phase(dev)
+
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
@@ -2547,6 +2776,19 @@ def main() -> int:
         # the earlier design, the route of shapes the tensor-core one refuses
         "cuda_core_source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
         "shape": f"B={SERVE_B} S={SERVE_S} H={h_ssd} P={p_ssd} N={n_ssd} chunk={cl} f32",
+    }, {
+        # phase 12: the same kernels at paligemma-3b's head dim on its
+        # main path, and at nemotron-4-340b's (192) off any path
+        "name": "flash_attention_d256", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
+        "launches": pali["launches"], "launches_by_route": pali["launches_by_route"],
+        "max_abs_err": pali["max_abs_err"], "max_abs_err_by_case": pali["errs"],
+        **{k: pali["main"][k] for k in ("ms", "event_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "library_event_ms",
+                                         "shape")},
+        "head_dims": pali["timed"],
+        "cuda_core_source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     }], "serve": {**{k: rates[k] for k in (
         "prefill_tok_s", "decode_tok_s", "prefill_tok_s_per_batch",
         "decode_tok_s_per_batch", "warmup_batches")},
@@ -2554,6 +2796,8 @@ def main() -> int:
         "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale},
         "stream_tiled": streamed["tiled"], "serve_hdp": served["serve_hdp"],
         "train": trained["train"],
+        "paligemma": {k: pali[k] for k in ("serve", "consistency_f32_depth4", "topic_lm",
+                                           "seconds")},
         "stream_lanes": {k: laned[k] for k in (
             "sec_per_iter", "delta_reduce_mb_per_iter", "block_exchange", "metrics",
             "tiled_threads")}}),

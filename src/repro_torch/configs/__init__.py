@@ -23,7 +23,12 @@ ARCHS = [
     "paligemma-3b",
 ]
 
-PORTED = {"hymba-1.5b": "hymba_1_5b"}
+PORTED = {
+    "hymba-1.5b": "hymba_1_5b",
+    "musicgen-medium": "musicgen_medium",
+    "paligemma-3b": "paligemma_3b",
+    "starcoder2-3b": "starcoder2_3b",
+}
 
 
 def get_config(name: str, smoke: bool = False):

@@ -23,7 +23,9 @@
 // both operands read from shared memory, so shared-memory bandwidth
 // (two loads per multiply-add) sets its time.
 //
-// What the design does. One block per (b * Hq + h, 64-query tile); the
+// What the design does. One block per (b * Hq + h, query tile of
+// block_q<D>() rows: 64, or 32 at D=256, where 64 rows' tiles would take
+// 280,064 B of shared memory, above the 232,448 B a block may have); the
 // TPU grid's sequential kv axis becomes a loop inside the block, since
 // blocks run in no order. The block loads its query tile once and walks
 // only the kv tiles that the causal mask and the window leave (the
@@ -41,7 +43,6 @@
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // keys per kv tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
@@ -59,9 +60,17 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// query rows per block: 64, and 32 at D=256 to fit a block's shared memory
 template <int D>
-constexpr int smem_floats() {
-  // q, k (pitch D+1), v, acc (pitch D), scores (pitch BK+1), m, l, corr
+__host__ __device__ constexpr int block_q() {
+  return D == 256 ? 32 : 64;
+}
+
+template <int D>
+__host__ __device__ constexpr int smem_floats() {
+  // q, k (pitch D+1), v, acc (pitch D), scores (pitch BK+1), m, l, corr:
+  // 214,528 B at D=192, 205,696 B at D=256 (32 query rows)
+  constexpr int kBQ = block_q<D>();
   return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * D +
          kBQ * (kBK + 1) + 3 * kBQ;
 }
@@ -72,6 +81,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, Strides st, int Hq,
           int group, int S, float scale, int causal, int window) {
   extern __shared__ float smem[];
+  constexpr int kBQ = block_q<D>();
   constexpr int QP = D + 1;
   constexpr int SP = kBK + 1;
   float* sq = smem;               // kBQ x QP
@@ -184,7 +194,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
+  const dim3 grid(B * Hq, (S + block_q<D>() - 1) / block_q<D>());
   flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), st, Hq, Hq / Hkv, S,
@@ -201,6 +211,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     case 32: return launch<T, 32>(q, k, v, o, st, B, Hq, Hkv, S, scale, causal, window, s);
     case 64: return launch<T, 64>(q, k, v, o, st, B, Hq, Hkv, S, scale, causal, window, s);
     case 128: return launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, S, scale, causal, window, s);
+    case 192: return launch<T, 192>(q, k, v, o, st, B, Hq, Hkv, S, scale, causal, window, s);
+    case 256: return launch<T, 256>(q, k, v, o, st, B, Hq, Hkv, S, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,27 +1,29 @@
-// flash_fwd_sm90: GQA attention forward in bf16 at head dim 64 and 128,
-// written for Hopper (sm_90a): both products on the tensor cores
-// (wgmma), the K and V tiles staged by TMA.
+// flash_fwd_sm90: GQA attention forward in bf16 at head dims 64, 128,
+// 192 and 256, written for Hopper (sm_90a): both products on the tensor
+// cores (wgmma), the K and V tiles staged by TMA.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py, function
 // _flash_kernel (called through flash_attention), for bf16 inputs at
-// D in {64, 128}; flash_attention.cu keeps float32 and bf16 at D in
-// {16, 32} on the CUDA cores. It computes what the TPU kernel computes:
-// for each (batch, query head h) and each query row, softmax over the
-// keys of kv head h / group of (q . k) * D^-0.5, with a causal mask
-// (k <= q) and an optional sliding window (k > q - window), times v.
+// D in {64, 128, 192, 256}; flash_attention.cu keeps float32 and bf16 at
+// D in {16, 32} on the CUDA cores. It computes what the TPU kernel
+// computes: for each (batch, query head h) and each query row, softmax
+// over the keys of kv head h / group of (q . k) * D^-0.5, with a causal
+// mask (k <= q) and an optional sliding window (k > q - window), times v.
 // The running (m, l, acc) of the online softmax are float32; a masked
 // score is -1e30 with weight 0, so a row masked so far keeps m = -1e30
 // and corr = 1; the output is acc / max(l, 1e-30) in bf16, a contiguous
 // (B, Hq, S, D). Any S: TMA zero-fills the rows of a ragged last tile
 // and the kernel masks them.
 //
-// What bounds it on this card. At the serving shape (B=4, S=512,
+// What bounds it on this card. At hymba's serving shape (B=4, S=512,
 // Hq=25, Hkv=5, D=64, causal) the function moves 15.7 MB (q, k, v read
 // once, out written once), 4.7 us at 3.35 TB/s, and needs 3.4 GFLOP of
 // unmasked products, 3.4 us at the bf16 tensor-core peak; the tiles it
 // computes (masked corners included) are about 3.8 GFLOP. At that size
 // latency, occupancy and the grid's tail set the time, not either peak.
+// At paligemma's prefill (B=4, S=768, Hq=8, Hkv=1, D=256) the products
+// (9.7 GFLOP, 9.8 us) bind, not the 28.3 MB (8.5 us).
 //
 // What the design does.
 //  - One CTA per (b * Hq + h, 64-row query tile): one consumer
@@ -35,7 +37,9 @@
 //    threads) guards it. Each operand is described by a 4-D tensor map
 //    over its strided (B, H, S, D) view, dims {D, S, H, B}, so the
 //    model's (B, S, H, D) projections are read in place. Tiles land with
-//    the 128 B swizzle, one 128 B atom per 64 columns (two for D=128).
+//    the 128 B swizzle, one 128 B atom per 64 columns (D/64 of them).
+//    Shared memory (Smem<D>::kAlloc): 42,024 B at D=64, 82,984 at 128,
+//    123,944 at 192, 164,904 at 256 (one CTA an SM at 192 and 256).
 //  - S = Q K^T: wgmma m64n64k16, Q and K both from shared memory
 //    (K-major descriptors), D/16 k-steps. bf16 x bf16 products are exact
 //    in float32, so this is the reference's float32 q.k up to the order
@@ -48,10 +52,15 @@
 //    are fully masked are not loaded at all.
 //  - O += P V: P rounded to bf16 in registers is wgmma's A operand (the
 //    accumulator layout of S is the A-fragment layout of P), V the B
-//    operand from shared memory in its MN-major (transposed) form. O
-//    stays in float32 registers and is rescaled by corr. Rounding P to
-//    bf16 is the one departure from the reference's float32 P; the CPU
-//    test of the rounding budget bounds it, and SDPA rounds P too.
+//    operand from shared memory in its MN-major (transposed) form: one
+//    m64n128k16 per 128 columns of V and one m64n64k16 for the 64 left
+//    over (D = 64, 192), each on its own slice of O. O stays in float32
+//    registers (D/2 a consumer thread: 96 at D=192, 128 at D=256, beside
+//    S's 32 and P's 16) and is rescaled by corr. Rounding P to bf16 is
+//    the one departure from the reference's float32 P; the CPU test of
+//    the rounding budget bounds it, and SDPA rounds P too. ptxas -v
+//    reports each instantiation's registers and spills (chip_smoke.py
+//    phase 1 prints them; PERF.md keeps them).
 //  - The epilogue divides by max(l, 1e-30), rounds to bf16 and stores
 //    the rows below S.
 
@@ -246,6 +255,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// O (64 x D, f32) += P (64 x 16, bf16 registers) V (16 x D) for one
+// 16-key step, V's rows from `vaddr` (MN-major, 128 B swizzle: sbo steps 8
+// rows of 128 B, lbo the next 64 columns, whose block lies kBK * 128 B on).
+// One n128 wgmma per 128 columns, then one n64 for the rest, each on its
+// slice of O's registers (columns 8j.. of O are acc[4j..4j+3]).
+template <int D>
+__device__ __forceinline__ void pv_step(float (&acc)[D / 2], const uint32_t (&pa)[4],
+                                        uint32_t vaddr) {
+  constexpr uint32_t kBlock = kBK * 128;  // bytes of one 64-column block
+#pragma unroll
+  for (int c = 0; c < D / 128; ++c)
+    wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(acc + 64 * c), pa,
+                  desc_sw128(vaddr + 2 * c * kBlock, kBlock / 16, 64), 1);
+  if constexpr (D % 128 != 0)
+    wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(acc + D / 2 - 32), pa,
+                 desc_sw128(vaddr + (D / 128) * 2 * kBlock, 64, 64), 1);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
@@ -255,7 +282,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                int n_qtiles, int BH, float scale_log2, int causal, int window) {
   using L = Smem<D>;
   constexpr int kCB = D / 64;  // 128 B column blocks per row
-  constexpr uint32_t kVLbo = D == 128 ? kBK * 128 / 16 : 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
@@ -394,12 +420,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     fence_regs(acc);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      // V rows 16kk.. of this stage, MN-major: sbo steps 8 rows of 128 B,
-      // lbo the next 64 columns (read only at D = 128)
-      const uint32_t voff = s * L::kKVBytes + kk * 16 * 128;
-      wgmma_rs<D>(acc, pa[kk], desc_sw128(sv + voff, kVLbo, 64), 1);
-    }
+    for (int kk = 0; kk < 4; ++kk)  // V rows 16kk.. of this stage
+      pv_step<D>(acc, pa[kk], sv + s * L::kKVBytes + kk * 16 * 128);
     wg_commit();
     wg_wait_all();
     fence_regs(acc);
@@ -498,7 +520,8 @@ extern "C" {
 // each read through `strides` (9 values: batch, head and sequence
 // strides of q, k, v in elements; the last dim is contiguous; every
 // base pointer 16 B aligned and every stride a multiple of 8 elements,
-// as TMA needs); o is a contiguous (B, Hq, S, D) bf16. D is 64 or 128.
+// as TMA needs); o is a contiguous (B, Hq, S, D) bf16. D is 64, 128, 192
+// or 256.
 // Scores are (q . k) * scale; window <= 0 means none. Returns 0, the
 // cudaError_t of the launch, 1000 + the CUresult of a failed
 // tensor-map encode, or 2000 if the CUDA driver has no tensor-map encoder.
@@ -512,6 +535,10 @@ int flash_fwd_sm90_launch(const void* q, const void* k, const void* v, void* o,
       return launch<64>(q, k, v, o, strides, B, Hq, Hkv, S, scale, causal, window, s);
     case 128:
       return launch<128>(q, k, v, o, strides, B, Hq, Hkv, S, scale, causal, window, s);
+    case 192:
+      return launch<192>(q, k, v, o, strides, B, Hq, Hkv, S, scale, causal, window, s);
+    case 256:
+      return launch<256>(q, k, v, o, strides, B, Hq, Hkv, S, scale, causal, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -520,7 +547,13 @@ int flash_fwd_sm90_launch(const void* q, const void* k, const void* v, void* o,
 // Dynamic shared memory a CTA of the D kernel takes, in bytes (0 for
 // another D).
 int flash_fwd_sm90_smem_bytes(int D) {
-  return D == 64 ? Smem<64>::kAlloc : D == 128 ? Smem<128>::kAlloc : 0;
+  switch (D) {
+    case 64: return Smem<64>::kAlloc;
+    case 128: return Smem<128>::kAlloc;
+    case 192: return Smem<192>::kAlloc;
+    case 256: return Smem<256>::kAlloc;
+    default: return 0;
+  }
 }
 
 }  // extern "C"

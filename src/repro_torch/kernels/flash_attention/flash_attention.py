@@ -7,13 +7,19 @@ CPU tensors it runs the plain version ``ref.attention_ref``. For CUDA
 tensors it launches one of two kernels on the current stream, chosen by
 ``route`` from the dtype and head dim, or raises; nothing falls back:
 
-- ``tensor_cores``: bf16 at D in (64, 128), ``csrc/flash_fwd_sm90.cu``
-  (wgmma for both products, K and V staged by TMA). TMA needs every
-  base pointer 16-byte aligned and every stride but the last a multiple
-  of 16 bytes; ``tma_check`` refuses inputs that break that.
-- ``cuda_cores``: float32 at any supported D, and bf16 at D in (16, 32),
-  ``csrc/flash_attention.cu`` (float32 products on the CUDA cores;
-  float32 stays there, as the tensor cores would run it in TF32).
+- ``tensor_cores``: bf16 at D in (64, 128, 192, 256),
+  ``csrc/flash_fwd_sm90.cu`` (wgmma for both products, K and V staged by
+  TMA). TMA needs every base pointer 16-byte aligned and every stride
+  but the last a multiple of 16 bytes; ``tma_check`` refuses inputs that
+  break that.
+- ``cuda_cores``: float32 at every D of ``HEAD_DIMS``, and bf16 at D in
+  (16, 32), ``csrc/flash_attention.cu`` (float32 products on the CUDA
+  cores; float32 stays there, as the tensor cores would run it in TF32;
+  32-row query tiles at D=256, 64 rows below).
+
+The reference's Pallas kernel takes any D; the port's kernels take the
+head dims of ``HEAD_DIMS``, which cover the reference's configs (64 and
+128, 192 for nemotron-4-340b, 256 for paligemma-3b), and raise on another.
 
 Any S works (both kernels mask a ragged last tile); q, k and v are read
 through their strides as long as the last dim is contiguous, so
@@ -38,8 +44,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"        # the CUDA-core kernel
 SM90_SOURCE = CSRC / "flash_fwd_sm90.cu"    # the tensor-core kernel
 SOURCES = (SOURCE, SM90_SOURCE)
-HEAD_DIMS = (16, 32, 64, 128)
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 192, 256)
 ROUTES = ("tensor_cores", "cuda_cores")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 16  # bytes, for base pointers and strides
@@ -74,7 +80,11 @@ def sm90_smem_bytes(d: int) -> int:
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel that runs (dtype, head dim) on the card."""
+    """The kernel that runs (dtype, head dim) on the card; raises
+    ValueError for a head dim that neither kernel takes."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernels; one of "
+                         f"{HEAD_DIMS}")
     if dtype == torch.bfloat16 and d in TENSOR_CORE_HEAD_DIMS:
         return "tensor_cores"
     return "cuda_cores"
@@ -130,13 +140,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    d = q.shape[3]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel; one of "
-                         f"{HEAD_DIMS}")
+    r = route(q.dtype, q.shape[3])
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the last dim of q, k and v must be contiguous")
-    r = route(q.dtype, d)
     if r == "tensor_cores":
         for name, t in (("q", q), ("k", k), ("v", v)):
             tma_check(name, t.shape, t.stride(), t.data_ptr(), t.element_size())

@@ -1,7 +1,8 @@
-"""Where hymba serving spends its time on the card.
+"""Where LM serving spends its time on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch hymba-1.5b \
       --batch 4 --prompt-len 512 --gen 32
+  ... --arch paligemma-3b                  # with its 256-position prefix
 
 Builds the model and a batch of prompts as ``repro_torch.launch.serve``
 does, serves ``--warmup`` batches unprofiled (the first pays cuBLAS's
@@ -69,7 +70,7 @@ def main(argv: list[str] | None = None) -> None:
     rng = np.random.default_rng(args.seed)
     serve_queue(model, RequestQueue(rng, args.warmup * args.batch, cfg.vocab_size,
                                     args.prompt_len),
-                args.batch, args.prompt_len, args.gen)
+                args.batch, args.prompt_len, args.gen, rng=rng)
     print(json.dumps({
         "arch": cfg.name, "batch": args.batch, "prompt_len": args.prompt_len,
         "warmup_batches": args.warmup, "card": card(),
@@ -77,16 +78,22 @@ def main(argv: list[str] | None = None) -> None:
 
     toks = torch.from_numpy(np.stack(RequestQueue(
         rng, args.batch, cfg.vocab_size, args.prompt_len).drain(args.batch))).to(dev)
+    embeds = None
+    if cfg.prefix_len:
+        embeds = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)).to(dev)
     cache_len = cache_length(cfg, args.prompt_len, args.gen)
-    logits, cache = profiled(lambda: model.prefill(toks, cache_len), "prefill", args.top)
+    prefill = lambda: model.prefill(toks, cache_len, embeds)  # noqa: E731
+    logits, cache = profiled(prefill, "prefill", args.top)
     token = torch.argmax(logits, dim=-1)
-    # decode at fill = prompt_len writes one cache slot; each call below
-    # rewrites the same slot, so every call does the same work
-    step = lambda: model.decode_step(token, cache, args.prompt_len)  # noqa: E731
+    # decode at fill = prefix + prompt writes one cache slot; each call
+    # below rewrites the same slot, so every call does the same work
+    fill = cfg.prefix_len + args.prompt_len
+    step = lambda: model.decode_step(token, cache, fill)  # noqa: E731
     step()
     profiled(step, "decode_step", args.top)
     print(json.dumps({
-        "host_ops_prefill": host_ops(lambda: model.prefill(toks, cache_len)),
+        "host_ops_prefill": host_ops(prefill),
         "host_ops_decode_step": host_ops(step),
     }), flush=True)
 

@@ -10,14 +10,20 @@ beside them.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --requests 8 --batch 4 --prompt-len 512 --gen 32     # on the card
+  ... --arch paligemma-3b ...                              # with a prefix
   ... --smoke --device cpu                                 # plain, CPU
 
 Parameters are drawn from a seeded ``torch.Generator`` on the device, in
-the config's ``param_dtype``. The cache holds min(prompt + gen, window)
-positions, as in the reference; the driver serves only when every
-generated token fits (prompt + gen <= cache length), because past that
-the reference's decode overwrites its last cache slot and no longer
-computes the model (the port's decode raises there).
+the config's ``param_dtype``. An arch with a prefix (``cfg.prefix_len``)
+gets, per batch, standard-normal float32 embeddings (B, prefix_len,
+d_model) standing in for its frontend, drawn as the reference draws them:
+from the generator of the queue's prompts, after them. The cache holds
+min(prefix + prompt + gen, window) positions and decoding starts at
+prefix + prompt; ``serve`` runs only when every generated token fits,
+because past that the reference's decode overwrites its last cache slot
+and no longer computes the model (the port's decode raises there). The
+reference's CLI leaves the prefix out of its cache length, and so drops
+positions whenever there is one (ROADMAP C7); the port does not copy that.
 """
 
 from __future__ import annotations
@@ -52,29 +58,37 @@ class RequestQueue:
 
 
 def cache_length(cfg, prompt_len: int, gen: int) -> int:
-    cache_len = prompt_len + gen
-    if cfg.window:
-        cache_len = min(cache_len, cfg.window)
-    if prompt_len + gen > cache_len:
+    """Positions of the KV cache: prefix + prompt + gen, cut to the
+    window; raises where the cut would drop positions."""
+    need = cfg.prefix_len + prompt_len + gen
+    cache_len = min(need, cfg.window) if cfg.window else need
+    if need > cache_len:
         raise ValueError(
-            f"prompt {prompt_len} + gen {gen} exceeds the cache of {cache_len} "
-            f"positions (window {cfg.window}); the decode would have to drop "
-            "positions, which this driver does not do")
+            f"prefix {cfg.prefix_len} + prompt {prompt_len} + gen {gen} exceeds "
+            f"the cache of {cache_len} positions (window {cfg.window}); the "
+            "decode would have to drop positions, which serving here does not do")
     return cache_len
 
 
 @torch.inference_mode()
 def serve_queue(model: CausalLM, queue: RequestQueue, batch: int,
-                prompt_len: int, gen: int, warmup: int = 0):
+                prompt_len: int, gen: int, warmup: int = 0,
+                rng: np.random.Generator | None = None):
     """Prefill and greedily decode every request of ``queue`` in static
     batches of ``batch`` (a partial last batch is padded with copies of
-    its last request). Returns (generated tokens, one list per request;
-    stats). Prefill and decode are timed between synchronizes; the first
-    ``warmup`` batches are served but neither timed nor counted in the
-    token totals."""
+    its last request). Where the model has a prefix, each batch's
+    embeddings are drawn from ``rng`` (required then) before its prefill.
+    Returns (generated tokens, one list per request; stats). Prefill and
+    decode are timed between synchronizes, the embeddings' copy to the
+    device included; the first ``warmup`` batches are served but neither
+    timed nor counted in the token totals, which count prompt and
+    generated tokens of real requests (prefix positions are not tokens)."""
     cfg = model.cfg
     device = model.embed.table.device
     cache_len = cache_length(cfg, prompt_len, gen)
+    if cfg.prefix_len and rng is None:
+        raise ValueError(f"{cfg.name} takes a prefix of {cfg.prefix_len} "
+                         "embeddings: pass the rng to draw them from")
     stats = {"prefill_tokens": 0, "decode_tokens": 0, "batches": 0,
              "prefill_s": [], "decode_s": [], "batch_tokens": []}
     finite = torch.ones((), dtype=torch.bool, device=device)
@@ -85,16 +99,22 @@ def serve_queue(model: CausalLM, queue: RequestQueue, batch: int,
             break
         pad = batch - len(reqs)
         toks = torch.from_numpy(np.stack(reqs + [reqs[-1]] * pad)).to(device)
+        embeds = None
+        if cfg.prefix_len:
+            embeds = rng.standard_normal(
+                (batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
         synchronize(device)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(toks, cache_len)
+        if embeds is not None:
+            embeds = torch.from_numpy(embeds).to(device)
+        logits, cache = model.prefill(toks, cache_len, embeds)
         synchronize(device)
         prefill_s = time.perf_counter() - t0
         finite &= torch.isfinite(logits).all()
 
         generated = []
         token = torch.argmax(logits, dim=-1)
-        fill = prompt_len
+        fill = cfg.prefix_len + prompt_len
         t0 = time.perf_counter()
         for _ in range(gen):
             generated.append(token)
@@ -123,7 +143,10 @@ def serve_queue(model: CausalLM, queue: RequestQueue, batch: int,
 def serve(args: argparse.Namespace):
     """Serve ``args.requests`` random prompts with a model drawn from
     ``args.seed``. On the card the kernels are built first, off the
-    clock. Prints and returns the summary, with the generated tokens."""
+    clock. Prints and returns the summary, with the generated tokens.
+    ``prefill_tok_s`` counts prompt tokens only, as the reference does:
+    a prefix's embeddings are not tokens, though its prefill computes
+    them too."""
     cfg = get_config(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
     cache_length(cfg, args.prompt_len, args.gen)  # refuse before any work
@@ -133,10 +156,10 @@ def serve(args: argparse.Namespace):
     if device.type == "cuda":
         _build.build_all([*FA.SOURCES, *SSD.SOURCES])
     model = CausalLM(cfg, torch.Generator(device=device).manual_seed(args.seed))
-    queue = RequestQueue(np.random.default_rng(args.seed), args.requests,
-                         cfg.vocab_size, args.prompt_len)
+    rng = np.random.default_rng(args.seed)
+    queue = RequestQueue(rng, args.requests, cfg.vocab_size, args.prompt_len)
     outputs, stats = serve_queue(model, queue, args.batch, args.prompt_len,
-                                 args.gen, warmup=WARMUP_BATCHES)
+                                 args.gen, warmup=WARMUP_BATCHES, rng=rng)
 
     def rate(tokens, seconds):
         return round(tokens / max(seconds, 1e-9), 1)

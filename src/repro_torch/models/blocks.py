@@ -43,7 +43,7 @@ def _mix(parts):
 
 def _ffn(p: Block, cfg, x):
     if hasattr(p, "mlp"):
-        x = x + mlp(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps))
+        x = x + mlp(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps), cfg.mlp_type)
     return x
 
 

@@ -31,7 +31,7 @@ class LMConfig:
     head_dim: int = 32
     d_ff: int = 512
     vocab_size: int = 256
-    mlp_type: str = "swiglu"          # swiglu|none
+    mlp_type: str = "swiglu"          # swiglu|geglu|gelu|squared_relu|none
     block_type: str = "dense"         # dense|moe|ssm|hybrid
     qkv_bias: bool = False
     rope_theta: float = 10000.0

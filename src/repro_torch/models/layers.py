@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models.module import Params, dense_init
@@ -29,6 +30,20 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     torch.sigmoid round once, and differ in about a third of bf16
     inputs)."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation 0.5 x (1 + tanh(c (x + 0.044715 x^3))),
+    c = sqrt(2 / pi), each operation in x's dtype with both constants
+    rounded to it: the reference's jax.nn.gelu (approximate=True) as XLA
+    expands it, x^3 as integer_pow's two products x * (x * x), so that in
+    bf16 every step rounds where the reference's does
+    (F.gelu(approximate="tanh") rounds once). The constants are Python
+    floats holding the rounded values, so the card gets no copy."""
+    c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype).item()
+    a = torch.tensor(0.044715, dtype=x.dtype).item()
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + a * (x * (x * x)))))
+    return x * cdf
 
 
 # -- Embedding ----------------------------------------------------------------

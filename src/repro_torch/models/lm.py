@@ -11,6 +11,11 @@ as the reference's ``jax.checkpoint(..., nothing_saveable)``.
 ``lm_loss`` computes the vocabulary cross-entropy in sequence chunks of
 ``cfg.loss_chunk`` (each checkpointed), so the (B, S, V) float32 logits
 are never held at once.
+
+Prefix embeddings: with ``cfg.prefix_len`` set, ``embeds`` (B, P, D)
+(precomputed frontend outputs, e.g. image patches) are cast to the
+compute dtype and put before the token embeddings, and positions run over
+the whole P + S. The loss is taken on the token positions only.
 """
 
 from __future__ import annotations
@@ -32,23 +37,26 @@ class CausalLM(nn.Module):
 
     def __init__(self, cfg: LMConfig, gen: torch.Generator):
         super().__init__()
-        if cfg.prefix_len:
-            raise NotImplementedError(
-                "prefix embeddings are not ported yet; see ROADMAP.md")
         self.cfg = cfg
         self.embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, cfg.pdtype)
         self.blocks = nn.ModuleList(BLK.Block(gen, cfg) for _ in range(cfg.num_layers))
         self.final_norm = init_rmsnorm(cfg.d_model, cfg.pdtype, gen.device)
 
-    def _inputs(self, tokens: torch.Tensor):
+    def _inputs(self, tokens: torch.Tensor, embeds: torch.Tensor | None):
+        """The input hidden states, ``embeds`` first where the config has
+        a prefix and they are given (as the reference, which then takes
+        tokens alone), and their positions 0..S_total-1."""
         x = embed(self.embed, tokens).to(self.cfg.cdtype)
-        b, s = tokens.shape
+        if self.cfg.prefix_len and embeds is not None:
+            x = torch.cat([embeds.to(self.cfg.cdtype), x], dim=1)
+        b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         return x, positions
 
-    def forward_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Final hidden states (B, S, D) of the full-sequence forward."""
-        x, positions = self._inputs(tokens)
+    def forward_hidden(self, tokens: torch.Tensor,
+                       embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Final hidden states (B, S_total, D) of the full-sequence forward."""
+        x, positions = self._inputs(tokens, embeds)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
@@ -59,9 +67,12 @@ class CausalLM(nn.Module):
                 x = BLK.block_train(blk, self.cfg, x, positions)
         return rmsnorm(self.final_norm, x, self.cfg.norm_eps)
 
-    def prefill(self, tokens: torch.Tensor, cache_len: int):
-        """Returns (last-position float32 logits (B, V), cache)."""
-        x, positions = self._inputs(tokens)
+    def prefill(self, tokens: torch.Tensor, cache_len: int,
+                embeds: torch.Tensor | None = None):
+        """Returns (last-position float32 logits (B, V), cache). The
+        cache holds the trailing ``cache_len`` positions of prefix and
+        tokens, so a decode that follows needs prefix + prompt + gen."""
+        x, positions = self._inputs(tokens, embeds)
         caches = []
         for blk in self.blocks:
             x, c = BLK.block_prefill(blk, self.cfg, x, positions, cache_len)
@@ -123,12 +134,14 @@ def _chunk_loss(table_p, hc, tc, mc):
 
 
 def lm_loss(model: CausalLM, tokens: torch.Tensor, targets: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
+            mask: torch.Tensor, embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Mean softmax cross-entropy over the positions ``mask`` keeps.
-    tokens, targets, mask: (B, S). The vocabulary is reduced in
+    tokens, targets, mask: (B, S); ``embeds`` (B, P, D), the prefix, whose
+    positions take no loss. The vocabulary is reduced in
     ``_largest_divisor_leq(S, cfg.loss_chunk)``-position chunks, each
     recomputed in the backward pass, not stored."""
-    h = _GradDtypeBarrier.apply(model.forward_hidden(tokens))
+    h = _GradDtypeBarrier.apply(model.forward_hidden(tokens, embeds))
+    h = h[:, model.cfg.prefix_len:]  # loss on token positions only
     b, s, _ = h.shape
     chunk = _largest_divisor_leq(s, model.cfg.loss_chunk)
     mf = mask.float()

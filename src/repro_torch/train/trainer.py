@@ -73,7 +73,7 @@ def make_train_step(cfg: LMConfig, opt: AdamWConfig):
     def train_step(state: TrainState, batch: dict):
         params = state.params
         loss = LM.lm_loss(state.model, batch["tokens"], batch["targets"],
-                          batch["mask"])
+                          batch["mask"], batch.get("embeds"))
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         loss = loss.detach()
         # NaN protection: skip the update on a non-finite loss OR

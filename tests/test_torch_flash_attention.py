@@ -20,7 +20,7 @@ from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
 from repro.kernels.flash_attention.ref import (  # noqa: E402
     attention_chunked as jax_chunked, attention_ref as jax_ref)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention, route, tma_check)
+    HEAD_DIMS, TENSOR_CORE_HEAD_DIMS, flash_attention, route, tma_check)
 from repro_torch.kernels.flash_attention.ops import mha  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_chunked, attention_ref)
@@ -67,6 +67,21 @@ def test_plain_version_matches_reference_kernel(b, hq, hkv, s, d, bq, bk,
     got = flash_attention(*tx, causal=causal, window=window)
     assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
     close(got, want, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [192, 256])
+def test_head_dims_192_and_256_match_reference_kernel(d, dtype, window):
+    """nemotron's and paligemma's head dims, one kv head for two query
+    heads, two kv blocks."""
+    jx, tx = mk(d + 1, 1, 2, 1, 128, d, dtype)
+    want = jax_flash(*jx, causal=True, window=window, block_q=64, block_k=64,
+                     interpret=True)
+    got = flash_attention(*tx, causal=True, window=window)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    close(got, want, dtype)
+    close(got, jax_ref(*jx, causal=True, window=window), dtype)
 
 
 # -- against the reference's dense oracle: shapes the Pallas kernel refuses ----
@@ -139,9 +154,24 @@ def test_wrapper_refuses_malformed_inputs(bad):
     (torch.float32, 16, "cuda_cores"),
     (torch.float32, 64, "cuda_cores"),
     (torch.float32, 128, "cuda_cores"),
+    (torch.bfloat16, 192, "tensor_cores"),
+    (torch.bfloat16, 256, "tensor_cores"),
+    (torch.float32, 192, "cuda_cores"),
+    (torch.float32, 256, "cuda_cores"),
 ])
 def test_route_by_dtype_and_head_dim(dtype, d, want):
     assert route(dtype, d) == want
+
+
+@pytest.mark.parametrize("d", [8, 48, 96, 320])
+def test_route_refuses_head_dims_no_kernel_takes(d):
+    """The kernels take (16, 32, 64, 128, 192, 256), the tensor cores
+    the four from 64 up; any other D raises, on either dtype."""
+    assert HEAD_DIMS == (16, 32, 64, 128, 192, 256)
+    assert TENSOR_CORE_HEAD_DIMS == (64, 128, 192, 256)
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match=f"head dim {d} not supported"):
+            route(dtype, d)
 
 
 @pytest.mark.parametrize("shape,strides,ptr", [
@@ -212,6 +242,9 @@ def emulate_tensor_core_kernel(q, k, v, *, causal, window, bk=64):
     # the kernel's other head dim, several kv tiles, a window and no mask
     (1, 4, 2, 192, 128, 64, 64, True, 80),
     (1, 4, 4, 128, 64, 64, 64, False, None),
+    # the head dims of nemotron (192) and paligemma (256, one kv head)
+    (1, 2, 1, 128, 192, 64, 64, True, None),
+    (1, 2, 1, 128, 256, 64, 64, True, 48),
 ])
 def test_rounding_p_to_bf16_fits_the_bf16_tolerance(b, hq, hkv, s, d, bq, bk,
                                                     causal, window):

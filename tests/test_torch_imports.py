@@ -232,3 +232,47 @@ def test_resolve_device_defaults_to_cuda_and_honours_cpu():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device()
+
+
+SLICE10_MODULES = (
+    "repro_torch.launch.topic_lm", "repro_torch.launch.serve",
+    "repro_torch.models.mlp", "repro_torch.configs.paligemma_3b",
+    "repro_torch.configs.starcoder2_3b", "repro_torch.configs.musicgen_medium",
+)
+
+
+def test_slice10_modules_import_no_jax_and_no_repro():
+    """The topic-conditioned LM, the prefix serving path, the MLP types
+    and the new configs, alone in a fresh process."""
+    code = (
+        "import importlib, sys\n"
+        f"for n in {SLICE10_MODULES!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_paligemma_serve_and_train_clis_run_on_cpu():
+    """Prefix embeddings through both CLIs at smoke size."""
+    serve = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "paligemma-3b", "--smoke", "--requests", "3", "--batch", "2",
+             "--prompt-len", "8", "--gen", "4", "--device", "cpu"]
+    out = subprocess.run(serve, env=_env(), capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["arch"] == "paligemma-3b" and summary["logits_finite"]
+    assert len(summary["sample_output"]) == 4
+    train = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "paligemma-3b", "--smoke", "--steps", "2", "--batch", "2", "--seq",
+             "32", "--log-every", "1", "--device", "cpu"]
+    out = subprocess.run(train, env=_env(), capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["arch"] == "paligemma-3b" and summary["steps"] == 2
+    assert all(h["skipped"] == 0 for h in summary["history"])

@@ -1,6 +1,7 @@
-"""The port's LM serving stack (hymba at smoke size) against the
-reference, with the reference's ``init_lm`` weights carried across by
-``lm_params_from_numpy``.
+"""The port's LM serving stack (hymba at smoke size; paligemma-3b's
+prefix embeddings, GeGLU and one kv head; the other archs' prefill)
+against the reference, with the reference's ``init_lm`` weights carried
+across by ``lm_params_from_numpy``.
 
 Tolerances: float32, 1e-5 for a single module and 1e-4 for logits and
 caches after the whole stack; bf16, atol 5e-2 and rtol 1e-2, the bar of
@@ -31,7 +32,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import lm as JLM  # noqa: E402
 from repro.models import mlp as JM  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
-from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs import ARCHS, PORTED, get_config  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     RequestQueue, cache_length, serve_queue)
 from repro_torch.models import attention as TA  # noqa: E402
@@ -40,6 +41,7 @@ from repro_torch.models import mlp as TM  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.models.lm import CausalLM  # noqa: E402
+from repro_torch.models.module import Params  # noqa: E402
 
 ARCH = "hymba-1.5b"
 MODULE_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
@@ -126,15 +128,38 @@ def test_swiglu(pair):
     dtype, jc, tc, params, model = pair
     xj, xt = both(np.random.default_rng(2).standard_normal((B, S, 64)), dtype)
     with torch.inference_mode():
-        got = TM.mlp(model.blocks[0].mlp, xt)
+        got = TM.mlp(model.blocks[0].mlp, xt, "swiglu")
     close(got, JM.mlp(layer0(params)["mlp"], xj, "swiglu"), MODULE_TOL[dtype])
 
 
-@pytest.mark.parametrize("mlp_type", ["geglu", "gelu", "squared_relu"])
-def test_unported_mlp_types_raise(mlp_type):
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), mlp_type=mlp_type)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CausalLM(cfg, torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mlp_type", ["swiglu", "geglu", "gelu", "squared_relu"])
+def test_mlp_types_match_the_reference(mlp_type, dtype):
+    """Every MLP type on the reference's own weights: wi (64, 2 x 128)
+    split gate | up where gated, (64, 128) where not."""
+    jp, _ = JM.init_mlp(jax.random.key(4), 64, 128, mlp_type, getattr(jnp, dtype))
+    p = Params(**{k: torch.from_numpy(np.array(v, np.float32)).to(getattr(torch, dtype))
+                  for k, v in jp.items()})
+    assert p.wi.shape == ((64, 256) if mlp_type in TM.GATED else (64, 128))
+    xj, xt = both(np.random.default_rng(12).standard_normal((B, S, 64)) * 2, dtype)
+    with torch.inference_mode():
+        got = TM.mlp(p, xt, mlp_type)
+    assert got.dtype == xt.dtype
+    close(got, JM.mlp(jp, xj, mlp_type), MODULE_TOL[dtype])
+
+
+def test_gelu_rounds_as_the_reference_in_bf16():
+    """Every finite bf16 input but those whose x or gelu(x) ~ x / 2 is
+    subnormal, which XLA's CPU flushes to zero: bitwise jax.nn.gelu."""
+    x = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = x[torch.isfinite(x) & ((x.float().abs() >= 2.0**-124) | (x == 0))]
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x.float().numpy(), jnp.bfloat16)), np.float32)
+    np.testing.assert_array_equal(TL.gelu(x).float().numpy(), want)
+
+
+def test_unknown_mlp_type_raises():
+    with pytest.raises(ValueError, match="unknown mlp_type"):
+        TM.init_mlp(torch.Generator().manual_seed(0), 8, 16, "relu", torch.float32)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -311,8 +336,15 @@ def test_registry_holds_the_ported_archs_only():
             cfg.head_dim, cfg.window, cfg.ssm_state, cfg.ssd_chunk) == (
         32, 1600, 25, 5, 64, 2048, 16, 128)
     assert cfg.pdtype == torch.bfloat16
+    pali = get_config("paligemma-3b")
+    assert (pali.num_layers, pali.d_model, pali.num_heads, pali.num_kv_heads,
+            pali.head_dim, pali.d_ff, pali.vocab_size, pali.prefix_len,
+            pali.mlp_type) == (18, 2048, 8, 1, 256, 16384, 257216, 256, "geglu")
+    assert set(PORTED) == {ARCH, "paligemma-3b", "starcoder2-3b", "musicgen-medium"}
     for name in ARCHS:
-        if name != ARCH:
+        if name in PORTED:
+            assert get_config(name).name == get_config(name, smoke=True).name == name
+        else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_config(name)
     with pytest.raises(KeyError):
@@ -338,6 +370,16 @@ def test_conversion_refuses_a_dtype_mismatch():
         lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
 
 
+def test_conversion_refuses_a_shape_mismatch():
+    """paligemma's GeGLU wi (d, 2 d_ff) into a model whose MLP is not
+    gated."""
+    jc, tc = pali_configs("float32")
+    params = jax.tree.map(np.asarray, init_params(jc, 3))
+    with pytest.raises(RuntimeError, match="size mismatch for blocks.0.mlp.wi"):
+        lm_params_from_numpy(params, dataclasses.replace(tc, mlp_type="gelu"),
+                             device="cpu")
+
+
 def test_conversion_runs_on_the_card_unless_asked_for_the_cpu():
     jc, tc = configs("float32")
     params = jax.tree.map(np.asarray, init_params(jc, 1))
@@ -346,3 +388,193 @@ def test_conversion_runs_on_the_card_unless_asked_for_the_cpu():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lm_params_from_numpy(params, tc)
+
+
+# -- paligemma-3b: prefix embeddings, GeGLU, one kv head -------------------------
+
+PALI = "paligemma-3b"
+
+
+def pali_configs(dtype):
+    jc = dataclasses.replace(jax_config(PALI, smoke=True), param_dtype=dtype,
+                             compute_dtype=dtype)
+    tc = dataclasses.replace(get_config(PALI, smoke=True), param_dtype=dtype,
+                             compute_dtype=dtype)
+    if dtype == "bfloat16":
+        jc = dataclasses.replace(jc, scan_layers=False)
+    return jc, tc
+
+
+def embeds_of(seed, b, cfg):
+    e = np.random.default_rng(seed).standard_normal(
+        (b, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    return jnp.asarray(e), torch.from_numpy(e)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def pali_pair(request):
+    dtype = request.param
+    jc, tc = pali_configs(dtype)
+    params = init_params(jc, 3)
+    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
+    return dtype, jc, tc, params, model
+
+
+def test_paligemma_conversion_keeps_the_references_weights(pali_pair):
+    """GeGLU's wi (d, 2 d_ff) and the one-head wk, wv carried across
+    bit for bit, in the reference's dtype."""
+    dtype, jc, tc, params, model = pali_pair
+    blk = model.blocks[1]
+    assert blk.mlp.wi.shape == (tc.d_model, 2 * tc.d_ff)
+    assert blk.attn.wk.shape == blk.attn.wv.shape == (tc.d_model, 1, tc.head_dim)
+    for name, got in (("mlp.wi", blk.mlp.wi), ("attn.wk", blk.attn.wk),
+                      ("attn.wv", blk.attn.wv)):
+        group, leaf = name.split(".")
+        want = np.asarray(params["blocks"][group][leaf][1], np.float32)
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_paligemma_prefill_with_embeds(pali_pair):
+    """Prefill over prefix + tokens: last logits and every layer's cache
+    (prefix positions first)."""
+    dtype, jc, tc, params, model = pali_pair
+    toks = np.random.default_rng(13).integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    ej, et = embeds_of(14, B, jc)
+    cache_len = jc.prefix_len + S + 4
+    want, wcache = JLM.prefill(params, jc, jnp.asarray(toks), cache_len, ej)
+    with torch.inference_mode():
+        got, cache = model.prefill(torch.from_numpy(toks), cache_len, et)
+    assert got.shape == (B, jc.vocab_size)
+    close(got, want, STACK_TOL[dtype])
+    for key in ("k", "v"):
+        assert stacked(cache, key).shape == wcache[key].shape
+        close(stacked(cache, key), wcache[key], STACK_TOL[dtype])
+    with torch.inference_mode():
+        h = model.forward_hidden(torch.from_numpy(toks), et)
+    assert h.shape == (B, jc.prefix_len + S, jc.d_model)
+    close(TL.unembed(model.embed, h[:, -1]), got.numpy(), STACK_TOL[dtype])
+
+
+@pytest.fixture(scope="module")
+def pali_f32():
+    jc, tc = pali_configs("float32")
+    params = init_params(jc, 4)
+    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
+    prefill = jax.jit(lambda p, t, c, e: JLM.prefill(p, jc, t, c, e), static_argnums=2)
+    decode = jax.jit(lambda p, t, c, f: JLM.decode_step(p, jc, t, c, f))
+    return jc, tc, params, model, prefill, decode
+
+
+def test_paligemma_teacher_forced_decode_after_the_prefix(pali_f32):
+    """The reference's prefill with cache_len = prefix + prompt + gen and
+    its decode_step from fill = prefix + prompt, 6 forced tokens."""
+    jc, tc, params, model, prefill, decode = pali_f32
+    rng = np.random.default_rng(15)
+    toks = rng.integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    forced = rng.integers(0, jc.vocab_size, (6, B)).astype(np.int32)
+    ej, et = embeds_of(16, B, jc)
+    cache_len = cache_length(tc, S, 6)
+    assert cache_len == jc.prefix_len + S + 6
+    _, wcache = prefill(params, jnp.asarray(toks), cache_len, ej)
+    fill = jc.prefix_len + S
+    with torch.inference_mode():
+        _, cache = model.prefill(torch.from_numpy(toks), cache_len, et)
+        for i in range(6):
+            want, wcache = decode(params, jnp.asarray(forced[i]), wcache,
+                                  jnp.int32(fill + i))
+            got, cache = model.decode_step(torch.from_numpy(forced[i]), cache, fill + i)
+            close(got, want, STACK_TOL["float32"])
+
+
+def test_paligemma_serve_loop_emits_the_reference_greedy_tokens(pali_f32):
+    """The serve loop draws each batch's embeddings from the queue's
+    generator after its prompts, as the reference's CLI does; its greedy
+    tokens against the reference's model functions given the same draws
+    and a cache that holds prefix + prompt + gen."""
+    jc, tc, params, model, prefill, decode = pali_f32
+    prompt_len, gen, batch = 6, 5, 2
+    rng = np.random.default_rng(17)
+    got, stats = serve_queue(model, RequestQueue(rng, 3, tc.vocab_size, prompt_len),
+                             batch, prompt_len, gen, rng=rng)
+    assert stats["logits_finite"] and stats["batches"] == 2
+    assert stats["prefill_tokens"] == 3 * prompt_len  # the prefix is not tokens
+
+    rng = np.random.default_rng(17)
+    queue = RequestQueue(rng, 3, jc.vocab_size, prompt_len)
+    cache_len = jc.prefix_len + prompt_len + gen
+    want = []
+    while reqs := queue.drain(batch):
+        toks = np.stack(reqs + [reqs[-1]] * (batch - len(reqs)))
+        embeds = jnp.asarray(rng.standard_normal(
+            (batch, jc.prefix_len, jc.d_model)).astype(np.float32))
+        logits, cache = prefill(params, jnp.asarray(toks), cache_len, embeds)
+        token = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        out = []
+        for i in range(gen):
+            out.append(np.asarray(token))
+            logits, cache = decode(params, token, cache,
+                                   jnp.int32(jc.prefix_len + prompt_len + i))
+            token = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        want.extend(np.stack(out, 1)[: len(reqs)].tolist())
+    assert got == want
+
+
+def test_serve_needs_the_generator_of_a_prefix(pali_f32):
+    _, tc, _, model, _, _ = pali_f32
+    with pytest.raises(ValueError, match="prefix"):
+        serve_queue(model, RequestQueue(np.random.default_rng(0), 2, tc.vocab_size, 4),
+                    2, 4, 2)
+
+
+def test_cache_length_counts_the_prefix():
+    """Full paligemma: 256 + 512 + 32 positions (the reference's CLI
+    would size 544 and drop 224 of them); a window still refuses what it
+    cannot hold."""
+    cfg = get_config(PALI)
+    assert cache_length(cfg, 512, 32) == 800
+    windowed = dataclasses.replace(cfg, window=700)
+    with pytest.raises(ValueError, match="prefix 256"):
+        cache_length(windowed, 512, 32)
+
+
+# -- the archs this slice completes ------------------------------------------------
+
+NEW_ARCHS = ["paligemma-3b", "starcoder2-3b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_ported_configs_are_the_references(arch):
+    for smoke in (False, True):
+        jc, tc = jax_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
+        for f in dataclasses.fields(tc):
+            assert getattr(tc, f.name) == getattr(jc, f.name), (arch, smoke, f.name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_smoke_prefill_logits_match_the_reference(arch, dtype):
+    """starcoder2 (gelu, qkv bias, rope theta 1e5), musicgen (gelu, a
+    prefix) and paligemma (geglu, a prefix, one kv head) at smoke size."""
+    jc = dataclasses.replace(jax_config(arch, smoke=True), param_dtype=dtype,
+                             compute_dtype=dtype,
+                             scan_layers=dtype == "float32")
+    tc = dataclasses.replace(get_config(arch, smoke=True), param_dtype=dtype,
+                             compute_dtype=dtype)
+    params = init_params(jc, 5)
+    if jc.qkv_bias:  # the reference inits biases to zero: give them values
+        rng = np.random.default_rng(18)
+        attn = dict(params["blocks"]["attn"])
+        for name in ("bq", "bk", "bv"):
+            attn[name] = jnp.asarray(rng.standard_normal(attn[name].shape) * 0.5,
+                                     attn[name].dtype)
+        params = {**params, "blocks": {**params["blocks"], "attn": attn}}
+    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
+    toks = np.random.default_rng(19).integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    ej = et = None
+    if jc.prefix_len:
+        ej, et = embeds_of(20, B, jc)
+    want, _ = JLM.prefill(params, jc, jnp.asarray(toks), jc.prefix_len + S, ej)
+    with torch.inference_mode():
+        got, _ = model.prefill(torch.from_numpy(toks), tc.prefix_len + S, et)
+    close(got, want, STACK_TOL[dtype])

@@ -235,6 +235,22 @@ def test_flash_attention_fn_backward_equals_plain_autograd(window):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_attention_fn_backward_at_head_dim_256(window):
+    """paligemma's head dim and one kv head: the Function's forward and
+    input gradients equal plain autograd."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .requires_grad_(True)
+               for shape in ((1, 4, 70, 256), (1, 1, 70, 256), (1, 1, 70, 256)))
+    g = torch.from_numpy(rng.standard_normal((1, 4, 70, 256)).astype(np.float32))
+    out = FlashAttentionFn.apply(q, k, v, True, window)
+    want = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    for a, b in zip(_grads(out, (q, k, v), g), _grads(want, (q, k, v), g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_mha_takes_the_function_only_when_a_gradient_is_needed():
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 8, 16)).astype(np.float32))
@@ -535,3 +551,69 @@ def test_train_state_from_numpy_refuses_foreign_moments():
     mu = dict(mu, extra=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="moments"):
         train_state_from_numpy(p, mu, nu, 0, tc, device="cpu")
+
+
+# -- paligemma-3b: the loss over a prefix ---------------------------------------------
+
+PALI = "paligemma-3b"
+
+
+def pali_configs(**kw):
+    return (dataclasses.replace(jax_config(PALI, smoke=True), param_dtype="float32",
+                                compute_dtype="float32", **kw),
+            dataclasses.replace(get_config(PALI, smoke=True), param_dtype="float32",
+                                compute_dtype="float32", **kw))
+
+
+def pali_batch(cfg, step=0):
+    return JD.SyntheticLMStream(cfg.vocab_size, B, S, seed=9, prefix_len=cfg.prefix_len,
+                                d_model=cfg.d_model).batch(step)
+
+
+def test_paligemma_loss_gradients_and_the_embeds_gradient():
+    """lm_loss with embeds (float32): the loss, every parameter's
+    gradient and the embeds' gradient against jax.value_and_grad; the
+    prefix positions take no loss (two chunks of 32 token positions)."""
+    jc, tc = pali_configs()
+    params = _jit_init(jc)(jax.random.key(6))
+    bt = pali_batch(jc)
+    assert bt["embeds"].shape == (B, jc.prefix_len, jc.d_model)
+    fn = jax.jit(jax.value_and_grad(lambda p, e, b: JLM.lm_loss(
+        p, jc, b["tokens"], b["targets"], b["mask"], e), argnums=(0, 1)))
+    jl, (jg, jge) = fn(params, jnp.asarray(bt["embeds"]), as_jax(bt))
+    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
+    model.requires_grad_(True)
+    emb = torch.from_numpy(bt["embeds"]).requires_grad_(True)
+    ps = dict(model.named_parameters())
+    loss = TLM.lm_loss(model, *(torch.from_numpy(bt[k]) for k in ("tokens", "targets", "mask")),
+                       emb)
+    *pg, eg = torch.autograd.grad(loss, [*ps.values(), emb])
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=0, atol=F32_LOSS_ATOL)
+    assert_leaves_close(dict(zip(ps, pg)), jg, F32_LEAF_REL)
+    want = np.asarray(jge)
+    assert eg.shape == want.shape and np.abs(want).max() > 0
+    assert np.abs(eg.numpy() - want).max() <= F32_LEAF_REL * np.abs(want).max()
+
+
+def test_paligemma_train_steps_match_the_reference_trainer():
+    """Three steps of make_train_step on batches with embeds (the
+    trainer passes ``batch.get("embeds")``), from the reference's own
+    state."""
+    jc, tc = pali_configs()
+    opt = dict(lr=1e-3, warmup=20)
+    js = JT.init_train_state(jax.random.key(7), jc)
+    ts = train_state_from_numpy(*(jax.tree.map(np.asarray, t)
+                                  for t in (js.params, js.mu, js.nu)),
+                                int(js.step), tc, device="cpu")
+    jstep = jax.jit(JT.make_train_step(jc, JO.AdamWConfig(**opt)))
+    tstep = TT.make_train_step(tc, TO.AdamWConfig(**opt))
+    for i in range(3):
+        bt = pali_batch(jc, i)
+        js, jm = jstep(js, as_jax(bt))
+        ts, tm = tstep(ts, TT.batch_tensors(bt, CPU))
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=0, atol=F32_LOSS_ATOL)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                                   rtol=1e-5)
+    assert_leaves_close(ts.params, js.params, F32_LEAF_REL)
+    assert_leaves_close(ts.mu, js.mu, F32_LEAF_REL)
