@@ -200,6 +200,39 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      route at D=256; (d) ``launch/topic_lm.py`` on the card (the port's
      sampler, 100 hdp_z sweeps, its mixtures as the LM's prefix): the
      conditioned loss below the unconditioned one.
+ 13. deepseek-moe-16b and the last reference configs: (a) flash bf16 on
+     the tensor cores at D=128 at the prefill shapes (B=4, S=512) of
+     deepseek (16/16 heads), llama4-scout (40/8), chatglm3 (32/2) and
+     qwen1.5 (40/40), and float32 on the CUDA cores at deepseek's, against
+     the plain version (3e-2, 2e-5; SDPA's error printed beside); the
+     CUDA-core SSD at mamba2-780m's shape (B=4, S=512, H=48, P=64,
+     N=128, chunk 128, 199,168 B of shared memory a block), B and C
+     shared by the heads, and on the model's dt and A also per head,
+     against the plain version (2e-4), on the model's dt and A also
+     against the float64 oracle (2e-4), with its ptxas
+     registers and spills; each timed in a child process (profiler device
+     time, events, the plain version, the bound, SDPA for flash); (b) the
+     main path, ``launch/serve.py --arch deepseek-moe-16b`` at its
+     published width and depth (28 layers, d_model 2048, 64 experts top-6
+     of d_ff 1408 + 2 shared, bf16, seed 0): 8 requests of 512 tokens in
+     batches of 4, 32 greedy tokens; the flash launches zeroed just
+     before and read just after, 28 x 2 = 56, all on the tensor cores;
+     every logit finite; prefill and decode tok/s, peak memory, and the
+     share of the experts' slots dropped at prefill (capacity 240) and
+     decode (capacity 1), from the aux of every moe call; (c) float32 at
+     full width and depth 4 with capacity factor E/K, where nothing
+     drops (at the reference's 1.25 a decode step's capacity is 1, and a
+     decode step drops what a prefill keeps): decode logits against the
+     last logits of a prefill one token longer, within
+     ``CONSISTENCY_ATOL``; the scatter and dense dispatches on one
+     layer's input at that capacity, at 1.25 and at 0.5 (where slots
+     drop), within
+     ``MOE_DISPATCH_ATOL``; no moe call synchronizing with the host
+     (``torch.cuda.set_sync_debug_mode``); (d) ``launch/serve.py`` on
+     llama4-scout-17b-a16e at depth 8 of 48, mamba2-780m whole (every SSD
+     launch on the CUDA cores, no flash launch), chatglm3-6b whole and
+     qwen1.5-32b at depth 16 of 64, the same requests: launches by route,
+     tok/s and peak memory of each.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -212,6 +245,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -359,6 +393,26 @@ PALI_F32_LAYERS = 4
 # head dim is; and the window of (a)'s windowed cases
 NEMO_HEADS, NEMO_B, NEMO_S = (96, 8, 192), 1, 512
 PHASE12_WINDOW = 200
+
+# deepseek-moe-16b serving (phase 13): requests, batch, prompt and
+# generated tokens of the main path (those of phases 6 and 12); the depth
+# of the float32 consistency check
+MOE_REQUESTS, MOE_B, MOE_PROMPT, MOE_GEN = 8, 4, 512, 32
+MOE_F32_LAYERS = 4
+# scatter against dense dispatch on the card, float32: each expert slot
+# holds one row, so the two differ only where the card's products order
+# their sums differently
+MOE_DISPATCH_ATOL = 1e-5
+# a capacity factor at which random inputs drop slots (at the reference's
+# 1.25 they hardly do: the router spreads them almost evenly)
+MOE_DROP_FACTOR = 0.5
+# 13 (a): the attention configs whose prefill shape (B=4, S=512, D=128)
+# flash is checked and timed at; 13 (d): the configs served beside
+# deepseek, each at the depth one card holds beside the script's other
+# tensors (None: whole)
+PHASE13_ATTN = ("deepseek-moe-16b", "llama4-scout-17b-a16e", "chatglm3-6b", "qwen1.5-32b")
+PHASE13_SERVED = (("llama4-scout-17b-a16e", 8), ("mamba2-780m", None),
+                  ("chatglm3-6b", None), ("qwen1.5-32b", 16))
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -709,7 +763,7 @@ def check_ssd_oracle(tag, args, cl, want=None) -> float:
     return worst
 
 
-def check_ssd(gen, b, s, h, p, n, cl, shared=True, model=False) -> float:
+def check_ssd(gen, b, s, h, p, n, cl, shared=True, model=False, phase="5") -> float:
     """Kernel against plain version on one case, the launch on the route
     ``SSD.route`` gives; with ``model`` also both routes against the plain
     version and the float64 oracle (``check_ssd_oracle``). Returns the
@@ -733,10 +787,10 @@ def check_ssd(gen, b, s, h, p, n, cl, shared=True, model=False) -> float:
         e = float((a - w).abs().max())
         check(e <= SSD_ATOL, f"{tag}: {name} max error {e} > {SSD_ATOL}")
         err = max(err, e)
-    print(f"[5] {tag} ({route}): max |kernel - plain| {err:.3g} over y, st, dec",
+    print(f"[{phase}] {tag} ({route}): max |kernel - plain| {err:.3g} over y, st, dec",
           flush=True)
     if model:
-        check_ssd_oracle(f"[5] {tag}", args, cl, want)
+        check_ssd_oracle(f"[{phase}] {tag}", args, cl, want)
     return err
 
 
@@ -2101,8 +2155,8 @@ def train_phase(dev, cfg) -> dict:
                       "resume_max_abs_err": err, "resume_spread": spread}}
 
 
-def time_flash(gen, b, hq, hkv, s, d, dtype, route) -> dict:
-    """12 (a): one route at one shape, causal: the kernel by profiler
+def time_flash(gen, b, hq, hkv, s, d, dtype, route, phase="12 (a)") -> dict:
+    """12 (a), 13 (a): one route at one shape, causal: the kernel by profiler
     device time and by events, SDPA the same ways (timed only; the port
     never calls it), the plain version by events, and the bound."""
     q, k, v = flash_inputs(gen, b, hq, hkv, s, d, dtype)
@@ -2120,7 +2174,7 @@ def time_flash(gen, b, hq, hkv, s, d, dtype, route) -> dict:
              plain_ms=cuda_time_ms(lambda: attention_ref(q, k, v), 3))
     t["bound_ms"], t["bound_by"] = flash_bound_ms(b, hq, hkv, s, d, q.element_size(),
                                                   True, None)
-    print(f"[12] (a) flash {route} {t['dtype']} {t['shape']}: device time {t['ms']:.4f} ms "
+    print(f"[{phase}] flash {route} {t['dtype']} {t['shape']}: device time {t['ms']:.4f} ms "
           f"(events {t['event_ms']:.4f}), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
           f"{t['ms'] / t['bound_ms']:.1f}x; SDPA {t['library_ms']:.4f} ms (events "
           f"{t['library_event_ms']:.4f}, max |SDPA - plain| {lib_err:.3g}); plain "
@@ -2287,6 +2341,273 @@ def paligemma_phase(dev) -> dict:
             "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale,
                                        "launches_by_route": f32_by_route},
             "topic_lm": topic, "seconds": phase_s}
+
+
+def phase13_shapes() -> dict:
+    """Arch: (B, Hq, Hkv, S, D) of 13 (a), each attention config's
+    prefill."""
+    return {arch: (MOE_B, c.num_heads, c.num_kv_heads, MOE_PROMPT, c.head_dim)
+            for arch in PHASE13_ATTN for c in [get_config(arch)]}
+
+
+def mamba2_ssd_shape() -> tuple:
+    """(B, S, H, P, N, chunk) of mamba2-780m's intra-chunk pass at the
+    serving batch and prompt."""
+    c = get_config("mamba2-780m")
+    return (MOE_B, MOE_PROMPT, c.ssm_expand * c.d_model // c.ssm_head_dim,
+            c.ssm_head_dim, c.ssm_state, c.ssd_chunk)
+
+
+def time_ssd(gen, b, s, h, p, n, cl) -> dict:
+    """13 (a): the SSD kernel of the route ``SSD.route`` gives, on dt and A
+    as the model at init feeds them: by profiler device time and by
+    events, the plain version by events, and the bound."""
+    args = ssd_inputs(gen, b, s, h, p, n, shared=True, model=True)
+    r = SSD.route(cl, n, p)
+    kern = lambda: SSD._launch(r, *args, cl)  # noqa: E731
+    t = dict(route=r, shape=f"B={b} S={s} H={h} P={p} N={n} chunk={cl} f32, model dt and A",
+             ms=device_time_ms(kern, 20, per_call=1), event_ms=cuda_time_ms(kern, 20),
+             plain_ms=cuda_time_ms(lambda: ssd_intra_chunk_ref(*args, chunk=cl), 3),
+             library_ms=None)
+    t["bound_ms"], t["bound_by"] = ssd_bound_ms(b, s, h, p, n, cl)
+    print(f"[13] (a) ssd {r} {t['shape']}: device time {t['ms']:.4f} ms (events "
+          f"{t['event_ms']:.4f}), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+          f"{t['ms'] / t['bound_ms']:.1f}x; plain {t['plain_ms']:.4f} ms", flush=True)
+    return t
+
+
+def phase13_timings() -> None:
+    """13 (a)'s timings, in a process of their own as ``flash_timings``:
+    flash bf16 on the tensor cores at the four attention configs'
+    prefill shapes, the CUDA-core SSD at mamba2-780m's. Prints the [13]
+    lines, then one JSON object."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {"flash": {arch: time_flash(gen, *shape, torch.bfloat16, "tensor_cores",
+                                      phase="13 (a)")
+                     for arch, shape in phase13_shapes().items()},
+           "ssd": time_ssd(gen, *mamba2_ssd_shape())}
+    print(json.dumps(out), flush=True)
+
+
+def serve_args(arch: str):
+    """``launch/serve.py``'s arguments for phase 13's serving runs."""
+    return SV.build_parser().parse_args([
+        "--arch", arch, "--requests", str(MOE_REQUESTS), "--batch", str(MOE_B),
+        "--prompt-len", str(MOE_PROMPT), "--gen", str(MOE_GEN), "--seed", "0"])
+
+
+def check_served(tag: str, cfg, outputs, served) -> None:
+    check(served["logits_finite"], f"{tag}: a logit is not finite")
+    check(len(outputs) == MOE_REQUESTS and all(len(o) == MOE_GEN for o in outputs),
+          f"{tag}: not {MOE_REQUESTS} requests of {MOE_GEN} tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outputs for t in o),
+          f"{tag}: a token outside the vocabulary")
+
+
+def moe_phase(dev) -> dict:
+    """Phase 13: the LM kernels at the new configs' shapes, deepseek-moe-16b
+    served at full width and depth, float32 decode and both dispatches at
+    depth 4, and four more configs served (see the docstring)."""
+    from repro_torch.models import moe as MOE
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config("deepseek-moe-16b")
+    shapes = phase13_shapes()
+    ssd_shape = mamba2_ssd_shape()
+    check(shapes["deepseek-moe-16b"] == (4, 16, 16, 512, 128),
+          f"deepseek-moe-16b's prefill shape {shapes['deepseek-moe-16b']}")
+    check(ssd_shape == (4, 512, 48, 64, 128, 128) and SSD.route(128, 128, 64) == "cuda_cores",
+          f"mamba2-780m's SSD shape {ssd_shape}, route {SSD.route(128, 128, 64)}")
+    ssd_ptxas = [line.strip() for line in _build.ptxas_report(SSD.SOURCE).splitlines()
+                 if re.search(r"registers|spill", line)]
+    for line in ssd_ptxas:
+        print(f"[13] ssd_chunk ptxas: {line}", flush=True)
+
+    # (a) the kernels at the new shapes against their plain versions, timed
+    # in a child process
+    errs = {}
+    for arch, shape in shapes.items():
+        check(FA.route(bf16, shape[-1]) == "tensor_cores", f"{arch}: flash route")
+        errs[arch], _ = check_flash(gen, *shape, bf16, True, None, sdpa=True, phase="13")
+    errs["deepseek-moe-16b float32"], _ = check_flash(
+        gen, *shapes["deepseek-moe-16b"], f32, True, None, phase="13")
+    ssd_err = max(check_ssd(gen, *ssd_shape, shared=True, phase="13"),
+                  check_ssd(gen, *ssd_shape, shared=True, model=True, phase="13"),
+                  check_ssd(gen, *ssd_shape, shared=False, model=True, phase="13"))
+    ssd_oracle_err = check_ssd_oracle(
+        "[13] ssd at mamba2-780m's shape, model dt and A",
+        ssd_inputs(gen, *ssd_shape[:5], shared=True, model=True), ssd_shape[5])
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as C; C.phase13_timings()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(child.returncode == 0, f"13 (a) timings: exit {child.returncode}\n"
+          f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+    timed = json.loads(lines[-1])
+    torch.cuda.empty_cache()
+
+    # (b) the main path: launch/serve.py at full width and depth; the
+    # experts' dropped share read from the aux that every moe call returns
+    # (a wrapper on the module's function: the model keeps no state)
+    dropped = {"prefill": [], "decode": []}
+    moe_fn = MOE.moe
+
+    def recorded(p, c, x, **kw):
+        out, aux = moe_fn(p, c, x, **kw)
+        dropped["prefill" if x.shape[1] > 1 else "decode"].append(aux["dropped"])
+        return out, aux
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_launches()
+    MOE.moe = recorded
+    try:
+        outputs, served = SV.serve(serve_args(cfg.name))
+    finally:
+        MOE.moe = moe_fn
+    launches = FA.flash_attention.launches
+    by_route = dict(FA.flash_attention.launches_by_route)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    batches = MOE_REQUESTS // MOE_B
+    want = cfg.num_layers * batches
+    check(launches == want and by_route == {"tensor_cores": want, "cuda_cores": 0},
+          f"deepseek serve: flash {launches} launches, by route {by_route}, expected "
+          f"{want} on tensor_cores")
+    check(SSD.ssd_intra_chunk.launches == 0, "deepseek serve: an SSD launch")
+    check_served("deepseek serve", cfg, outputs, served)
+    share = {k: torch.stack(v).float().cpu().numpy() for k, v in dropped.items()}
+    check(len(share["prefill"]) == want and len(share["decode"]) == want * MOE_GEN,
+          f"deepseek serve: {len(share['prefill'])} prefill and {len(share['decode'])} "
+          f"decode moe calls recorded")
+    check(all(((v >= 0) & (v < 1)).all() for v in share.values()),
+          "deepseek serve: a dropped share outside [0, 1)")
+    caps = {"prefill": MOE.capacity(cfg, MOE_B * MOE_PROMPT), "decode": MOE.capacity(cfg, MOE_B)}
+    drop = {k: {"capacity": caps[k], "mean": float(v.mean()), "max": float(v.max())}
+            for k, v in share.items()}
+    print(f"[13] (b) served deepseek-moe-16b ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads at D={cfg.head_dim}, "
+          f"{cfg.num_experts} experts top-{cfg.top_k} of d_ff {cfg.expert_d_ff} + "
+          f"{cfg.shared_experts} shared, vocab {cfg.vocab_size}, {served['parameters']:,} "
+          f"parameters, bf16, seed 0): {MOE_REQUESTS} requests, batch {MOE_B}, prompt "
+          f"{MOE_PROMPT}, gen {MOE_GEN}; flash launches {launches} (by route {by_route}); "
+          f"prefill {served['prefill_tok_s']} tok/s, decode {served['decode_tok_s']} tok/s "
+          f"({batches - 1} timed batch after 1 warm-up); peak {peak_gib:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated); dropped share of the experts' slots at "
+          f"prefill (capacity {caps['prefill']}) mean {drop['prefill']['mean']:.4f}, max "
+          f"{drop['prefill']['max']:.4f} over {len(share['prefill'])} calls; at decode "
+          f"(capacity {caps['decode']}) mean {drop['decode']['mean']:.4f}, max "
+          f"{drop['decode']['max']:.4f} over {len(share['decode'])} calls; sample "
+          f"{served['sample_output']}", flush=True)
+    torch.cuda.empty_cache()
+
+    # (c) float32 at full width, depth 4, capacity E/K (= T: no slot drops):
+    # decode logits against a prefill one token longer; both dispatches on
+    # one layer's input, at that capacity and at the reference's; no moe
+    # call reads back to the host
+    nodrop = cfg.num_experts / cfg.top_k
+    cfg32 = dataclasses.replace(cfg, num_layers=MOE_F32_LAYERS, param_dtype="float32",
+                                compute_dtype="float32", capacity_factor=nodrop)
+    zero_lm_launches()
+    with torch.inference_mode():
+        model = CausalLM(cfg32, torch.Generator(device=dev).manual_seed(1))
+        toks = torch.randint(0, cfg32.vocab_size, (2, MOE_PROMPT + 1), generator=gen,
+                             device=dev)
+        _, cache = model.prefill(toks[:, :MOE_PROMPT], MOE_PROMPT + 1)
+        dec_logits, _ = model.decode_step(toks[:, MOE_PROMPT], cache, MOE_PROMPT)
+        full_logits, _ = model.prefill(toks, MOE_PROMPT + 1)
+        f32_by_route = dict(FA.flash_attention.launches_by_route)
+        x = torch.randn((2, MOE_PROMPT + 1, cfg32.d_model), generator=gen, device=dev)
+        layer = model.blocks[0].moe
+        disp = {}
+        for cf in (nodrop, cfg.capacity_factor, MOE_DROP_FACTOR):
+            c = dataclasses.replace(cfg32, capacity_factor=cf)
+            (a, aux), (b, _) = (MOE.moe(layer, c, x, mode=m) for m in ("scatter", "dense"))
+            disp[cf] = {"max_abs_diff": float((a - b).abs().max()),
+                        "dropped": float(aux["dropped"]), "capacity": MOE.capacity(c, x.shape[0] * x.shape[1])}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as syncs:
+                warnings.simplefilter("always")
+                for m in MOE.DISPATCHES:
+                    for xs in (x, x[:, :1]):
+                        MOE.moe(layer, cfg32, xs, mode=m)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    del model, cache, layer
+    cons_err = float((dec_logits - full_logits).abs().max())
+    cons_scale = float(full_logits.abs().max())
+    check(bool(torch.isfinite(dec_logits).all()), "deepseek f32: non-finite logits")
+    check(f32_by_route == {"tensor_cores": 0, "cuda_cores": 2 * MOE_F32_LAYERS},
+          f"deepseek f32: flash launches by route {f32_by_route}")
+    check(cons_err <= CONSISTENCY_ATOL,
+          f"deepseek f32: max |decode - prefill(S+1)| {cons_err} > {CONSISTENCY_ATOL}")
+    check(disp[nodrop]["dropped"] == 0.0 and disp[MOE_DROP_FACTOR]["dropped"] > 0,
+          f"deepseek f32: dropped shares {disp}")
+    check(all(d["max_abs_diff"] <= MOE_DISPATCH_ATOL for d in disp.values()),
+          f"deepseek f32: scatter against dense {disp}")
+    check(not syncs, "deepseek f32: a moe call synchronized with the host: "
+          + "; ".join(str(w.message)[:200] for w in syncs[:3]))
+    print(f"[13] (c) float32, full width, depth {MOE_F32_LAYERS}, capacity factor {nodrop} "
+          f"(nothing drops): max |decode logits - prefill(S+1) logits| = {cons_err} "
+          f"(largest |logit| {cons_scale}; atol {CONSISTENCY_ATOL}); flash launches by route "
+          f"{f32_by_route}; scatter against dense on layer 0 at (2, {MOE_PROMPT + 1}): "
+          + ", ".join(f"capacity factor {cf} (capacity {d['capacity']}, dropped "
+                      f"{d['dropped']:.4f}) max |diff| {d['max_abs_diff']}"
+                      for cf, d in disp.items())
+          + f"; host syncs in 4 moe calls under torch.cuda.set_sync_debug_mode: {len(syncs)}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) the other configs, a batch each after the warm-up batch
+    others = {}
+    for arch, layers in PHASE13_SERVED:
+        c = get_config(arch)
+        if layers:
+            c = dataclasses.replace(c, num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        zero_lm_launches()
+        outs, srv = SV.serve(serve_args(arch), c)
+        fa, ssd = (dict(FA.flash_attention.launches_by_route),
+                   dict(SSD.ssd_intra_chunk.launches_by_route))
+        want = c.num_layers * batches
+        if c.attn_active:
+            check(fa == {"tensor_cores": want, "cuda_cores": 0} and sum(ssd.values()) == 0,
+                  f"{arch} serve: flash {fa}, ssd {ssd}; expected {want} flash on tensor_cores")
+        else:
+            check(ssd == {"tensor_cores": 0, "cuda_cores": want} and sum(fa.values()) == 0,
+                  f"{arch} serve: ssd {ssd}, flash {fa}; expected {want} SSD on cuda_cores")
+        check_served(f"{arch} serve", c, outs, srv)
+        others[arch] = {"layers": c.num_layers, "of_layers": get_config(arch).num_layers,
+                        "parameters": srv["parameters"],
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "flash_launches_by_route": fa, "ssd_launches_by_route": ssd,
+                        **{k: srv[k] for k in ("prefill_tok_s", "decode_tok_s")}}
+        print(f"[13] (d) served {arch} at {c.num_layers} of {get_config(arch).num_layers} "
+              f"layers ({srv['parameters']:,} parameters, bf16, seed 0): prefill "
+              f"{srv['prefill_tok_s']} tok/s, decode {srv['decode_tok_s']} tok/s; peak "
+              f"{others[arch]['peak_mem_gib']:.3f} GiB; flash launches {fa}, SSD launches "
+              f"{ssd}", flush=True)
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[13] phase 13 took {phase_s:.1f} s", flush=True)
+    return {"launches": launches, "launches_by_route": by_route, "errs": errs,
+            "timed": timed, "ssd_err": ssd_err, "ssd_oracle_err": ssd_oracle_err,
+            "ssd_ptxas": ssd_ptxas, "ssd_launches": others["mamba2-780m"]["ssd_launches_by_route"],
+            "serve": {k: served[k] for k in ("prefill_tok_s", "decode_tok_s",
+                                              "prefill_tok_s_per_batch",
+                                              "decode_tok_s_per_batch", "sample_output",
+                                              "parameters")}
+            | {"peak_mem_gib": peak_gib, "dropped": drop},
+            "consistency_f32_depth4": {"max_abs_err": cons_err, "max_abs_logit": cons_scale,
+                                       "capacity_factor": nodrop,
+                                       "launches_by_route": f32_by_route},
+            "dispatch_f32": {str(cf): d for cf, d in disp.items()}, "host_syncs": len(syncs),
+            "served": others, "seconds": phase_s}
 
 
 def main() -> int:
@@ -2725,6 +3046,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     pali = paligemma_phase(dev)
 
+    # ---- 13. deepseek-moe-16b serving, the other configs, D=128 and N=128 ----
+    torch.cuda.empty_cache()
+    moe = moe_phase(dev)
+
     main = timing["prologue"]
     print(json.dumps({"kernels": [{
         "name": "hdp_z", "route": "cuda",
@@ -2789,6 +3114,31 @@ def main() -> int:
                                          "shape")},
         "head_dims": pali["timed"],
         "cuda_core_source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    }, {
+        # phase 13: the tensor-core kernel at D=128 on deepseek-moe-16b's
+        # main path, and at the other attention configs' prefill shapes
+        "name": "flash_attention_d128", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
+        "launches": moe["launches"], "launches_by_route": moe["launches_by_route"],
+        "launches_other_configs": {a: o["flash_launches_by_route"]
+                                   for a, o in moe["served"].items()},
+        "max_abs_err": moe["errs"]["deepseek-moe-16b"], "max_abs_err_by_case": moe["errs"],
+        **{k: moe["timed"]["flash"]["deepseek-moe-16b"][k] for k in (
+            "ms", "event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_event_ms", "shape")},
+        "configs": moe["timed"]["flash"],
+    }, {
+        # phase 13: the CUDA-core SSD kernel at mamba2-780m's state (N=128)
+        # on its main path
+        "name": "ssd_chunk_n128", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:31",
+        "launches": sum(moe["ssd_launches"].values()), "launches_by_route": moe["ssd_launches"],
+        "max_abs_err": moe["ssd_err"], "oracle_max_abs_err": moe["ssd_oracle_err"],
+        **{k: moe["timed"]["ssd"][k] for k in (
+            "ms", "event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "ptxas": moe["ssd_ptxas"],
     }], "serve": {**{k: rates[k] for k in (
         "prefill_tok_s", "decode_tok_s", "prefill_tok_s_per_batch",
         "decode_tok_s_per_batch", "warmup_batches")},
@@ -2798,6 +3148,9 @@ def main() -> int:
         "train": trained["train"],
         "paligemma": {k: pali[k] for k in ("serve", "consistency_f32_depth4", "topic_lm",
                                            "seconds")},
+        "deepseek_moe": {k: moe[k] for k in ("serve", "consistency_f32_depth4",
+                                             "dispatch_f32", "host_syncs", "seconds")},
+        "served_phase13": moe["served"],
         "stream_lanes": {k: laned[k] for k in (
             "sec_per_iter", "delta_reduce_mb_per_iter", "block_exchange", "metrics",
             "tiled_threads")}}),

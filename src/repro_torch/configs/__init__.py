@@ -1,9 +1,9 @@
 """Architecture registry (counterpart of ``repro.configs``).
 
-``ARCHS`` lists every architecture the reference supports;
-``get_config(name)`` returns the full published ``LMConfig`` of one the
-port has ported, ``get_config(name, smoke=True)`` its reduced
-same-family config. An architecture not yet ported raises.
+``ARCHS`` lists every architecture the reference supports, and the port
+has them all: ``get_config(name)`` returns the full published
+``LMConfig``, ``get_config(name, smoke=True)`` its reduced same-family
+config. An unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -23,21 +23,12 @@ ARCHS = [
     "paligemma-3b",
 ]
 
-PORTED = {
-    "hymba-1.5b": "hymba_1_5b",
-    "musicgen-medium": "musicgen_medium",
-    "paligemma-3b": "paligemma_3b",
-    "starcoder2-3b": "starcoder2_3b",
-}
+# arch name -> module of this package that holds its CONFIG
+PORTED = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 
 
 def get_config(name: str, smoke: bool = False):
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {sorted(PORTED)}); "
-            "see ROADMAP.md, section A"
-        )
+        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     cfg = importlib.import_module(f"repro_torch.configs.{PORTED[name]}").CONFIG
     return cfg.smoke() if smoke else cfg

@@ -11,6 +11,7 @@ beside them.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --requests 8 --batch 4 --prompt-len 512 --gen 32     # on the card
   ... --arch paligemma-3b ...                              # with a prefix
+  ... --arch deepseek-moe-16b ...                          # mixture of experts
   ... --smoke --device cpu                                 # plain, CPU
 
 Parameters are drawn from a seeded ``torch.Generator`` on the device, in
@@ -40,6 +41,7 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.ssd import ssd as SSD
+from repro_torch.models.config import LMConfig
 from repro_torch.models.lm import CausalLM
 
 WARMUP_BATCHES = 1
@@ -140,14 +142,17 @@ def serve_queue(model: CausalLM, queue: RequestQueue, batch: int,
     return outputs, stats
 
 
-def serve(args: argparse.Namespace):
+def serve(args: argparse.Namespace, cfg: LMConfig | None = None):
     """Serve ``args.requests`` random prompts with a model drawn from
     ``args.seed``. On the card the kernels are built first, off the
     clock. Prints and returns the summary, with the generated tokens.
     ``prefill_tok_s`` counts prompt tokens only, as the reference does:
     a prefix's embeddings are not tokens, though its prefill computes
-    them too."""
-    cfg = get_config(args.arch, smoke=args.smoke)
+    them too. ``cfg``, where a caller gives it, is served in place of
+    ``args.arch``'s config (e.g. the arch at a reduced depth,
+    ``dataclasses.replace(cfg, num_layers=8)``)."""
+    if cfg is None:
+        cfg = get_config(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
     cache_length(cfg, args.prompt_len, args.gen)  # refuse before any work
     if args.requests <= WARMUP_BATCHES * args.batch:
@@ -176,6 +181,7 @@ def serve(args: argparse.Namespace):
         "decode_tok_s_per_batch": [rate(args.gen * n, t) for n, t in
                                    zip(stats["batch_tokens"], stats["decode_s"])],
         "sample_output": outputs[0][:8] if outputs else [],
+        "parameters": sum(t.numel() for t in model.parameters()),
         "logits_finite": stats["logits_finite"],
         "device": str(device),
     }

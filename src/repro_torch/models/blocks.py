@@ -1,6 +1,7 @@
 """Decoder blocks (counterpart of ``repro/models/blocks.py``): dense,
-ssm (Mamba-2) and hybrid (hymba: attention and SSD heads in parallel on
-the same input, outputs averaged). The moe block is not ported yet.
+moe (attention, then a mixture of experts in the MLP's place), ssm
+(Mamba-2) and hybrid (hymba: attention and SSD heads in parallel on the
+same input, outputs averaged).
 
 A ``Block`` holds one layer's parameters under the reference's names;
 the functions take it where the reference takes the layer's dict. A
@@ -14,25 +15,31 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as ATT
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import init_rmsnorm, rmsnorm
 from repro_torch.models.mlp import init_mlp, mlp
 
 
+BLOCK_TYPES = ("dense", "moe", "ssm", "hybrid")
+
+
 class Block(nn.Module):
     def __init__(self, gen: torch.Generator, cfg):
         super().__init__()
-        if cfg.block_type not in ("dense", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"block_type {cfg.block_type!r} is not ported yet; see "
-                "ROADMAP.md, section A")
+        if cfg.block_type not in BLOCK_TYPES:
+            raise ValueError(f"unknown block_type {cfg.block_type!r}; one of "
+                             f"{BLOCK_TYPES}")
         dt, dev = cfg.pdtype, gen.device
         self.norm1 = init_rmsnorm(cfg.d_model, dt, dev)
         if cfg.attn_active:
             self.attn = ATT.init_attention(gen, cfg, dt)
         if cfg.ssm_active:
             self.ssm = SSM.init_ssm(gen, cfg, dt)
-        if cfg.mlp_type != "none" and cfg.d_ff > 0:
+        if cfg.block_type == "moe":
+            self.norm2 = init_rmsnorm(cfg.d_model, dt, dev)
+            self.moe = MOE.init_moe(gen, cfg, dt)
+        elif cfg.mlp_type != "none" and cfg.d_ff > 0:
             self.norm2 = init_rmsnorm(cfg.d_model, dt, dev)
             self.mlp = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dt)
 
@@ -42,7 +49,13 @@ def _mix(parts):
 
 
 def _ffn(p: Block, cfg, x):
-    if hasattr(p, "mlp"):
+    """The MLP or the experts on the normed residual; the experts' load
+    statistics are dropped, as the reference's stack drops them."""
+    if hasattr(p, "moe"):
+        y, _ = MOE.moe(p.moe, cfg, rmsnorm(p.norm2, x, cfg.norm_eps),
+                       mode=cfg.moe_dispatch)
+        x = x + y
+    elif hasattr(p, "mlp"):
         x = x + mlp(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps), cfg.mlp_type)
     return x
 

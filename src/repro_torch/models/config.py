@@ -7,8 +7,7 @@ recomputes each block's forward in the backward pass
 (``torch.utils.checkpoint``) instead of keeping its activations. The
 reference's fields that only steer XLA or sharding (``act_shard_seq``,
 ``act_spec``, ``scan_layers``, ``use_kernels``) have no counterpart: on
-the card the port always launches its kernels. Its MoE fields come with
-the moe block that reads them.
+the card the port always launches its kernels.
 """
 
 from __future__ import annotations
@@ -37,6 +36,14 @@ class LMConfig:
     rope_theta: float = 10000.0
     rotary_fraction: float = 1.0
     window: Optional[int] = None      # sliding-window attention
+    # MoE
+    num_experts: int = 0
+    top_k: int = 1
+    expert_d_ff: int = 0
+    shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_type: str = "softmax"      # softmax|sigmoid
+    moe_dispatch: str = "scatter"     # scatter|dense
     # SSM
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -83,6 +90,10 @@ class LMConfig:
             head_dim=16,
             d_ff=128 if self.d_ff else 0,
             vocab_size=128,
+            num_experts=min(self.num_experts, 8),
+            expert_d_ff=32 if self.num_experts else 0,
+            top_k=min(self.top_k, 2),
+            shared_experts=min(self.shared_experts, 1),
             ssm_state=min(self.ssm_state, 8),
             ssm_head_dim=16 if self.ssm_state else 64,
             window=min(self.window, 16) if self.window else None,

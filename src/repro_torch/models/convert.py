@@ -5,7 +5,9 @@ returns, with its arrays as numpy arrays (``jax.tree.map(np.asarray,
 params)``): layers stacked on a leading L axis, the reference's layouts
 (``wq`` (d, Hq, Dh), ``wo`` (Hq, Dh, d), ``in_proj`` (d, .), ``conv_w``
 (4, C), the gated MLPs' ``wi`` (d, 2 d_ff) as gate | up, one kv head's
-``wk``/``wv`` (d, 1, Dh), the tied ``embed.table`` (V, d)). It loads them
+``wk``/``wv`` (d, 1, Dh), the tied ``embed.table`` (V, d), the experts'
+``moe.wi`` (E, d, width) and ``moe.wo`` (E, f, d) beside the float32
+``moe.router`` (d, E) whatever the other weights' dtype). It loads them
 into a ``CausalLM`` so that both compute the same function.
 ``train_state_from_numpy`` does the same for the reference's training
 state (parameters, AdamW moments, step).

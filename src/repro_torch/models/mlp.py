@@ -23,16 +23,20 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
                   wo=dense_init(gen, (d_ff, d_model), dtype))
 
 
-def mlp(p: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    h = torch.matmul(x, p.wi.to(x.dtype))
+def activation(h: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """The hidden activation of ``wi``'s output: a gated type halves the
+    last dim (gate | up)."""
     if mlp_type in GATED:
         g, u = h.chunk(2, dim=-1)
-        h = (silu(g) if mlp_type == "swiglu" else gelu(g)) * u
-    elif mlp_type == "gelu":
-        h = gelu(h)
-    elif mlp_type == "squared_relu":
+        return (silu(g) if mlp_type == "swiglu" else gelu(g)) * u
+    if mlp_type == "gelu":
+        return gelu(h)
+    if mlp_type == "squared_relu":
         r = torch.relu(h)
-        h = r * r
-    else:
-        raise ValueError(f"unknown mlp_type {mlp_type!r}; one of {MLP_TYPES}")
+        return r * r
+    raise ValueError(f"unknown mlp_type {mlp_type!r}; one of {MLP_TYPES}")
+
+
+def mlp(p: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    h = activation(torch.matmul(x, p.wi.to(x.dtype)), mlp_type)
     return torch.matmul(h, p.wo.to(x.dtype))

@@ -38,7 +38,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 70  # every module was reached
+    assert int(out.stdout.strip()) >= 78  # every module was reached
 
 
 LM_TRAIN_MODULES = (
@@ -53,6 +53,32 @@ def test_lm_train_modules_import_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"
         f"for n in {LM_TRAIN_MODULES!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+MOE_AND_CONFIG_MODULES = (
+    "repro_torch.models.moe", "repro_torch.models.blocks",
+    "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.configs.chatglm3_6b",
+    "repro_torch.configs.qwen1_5_32b", "repro_torch.configs.mamba2_780m",
+    "repro_torch.configs.nemotron_4_340b", "repro_torch.launch.serve",
+)
+
+
+def test_moe_and_config_modules_import_no_jax_and_no_repro():
+    """The MoE block and the six configs it completes, alone in a fresh
+    process, each config resolving through the registry."""
+    code = (
+        "import importlib, sys\n"
+        f"for n in {MOE_AND_CONFIG_MODULES!r}: importlib.import_module(n)\n"
+        "from repro_torch.configs import ARCHS, get_config\n"
+        "assert all(get_config(a).name == a for a in ARCHS)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -331,6 +331,8 @@ def test_serve_refuses_what_the_cache_cannot_hold():
 # -- registry and conversion -----------------------------------------------------
 
 def test_registry_holds_the_ported_archs_only():
+    """Every arch of the reference resolves, full and smoke, and a model
+    of each block type builds (moe included); an unknown name raises."""
     cfg = get_config(ARCH)
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.window, cfg.ssm_state, cfg.ssd_chunk) == (
@@ -340,18 +342,19 @@ def test_registry_holds_the_ported_archs_only():
     assert (pali.num_layers, pali.d_model, pali.num_heads, pali.num_kv_heads,
             pali.head_dim, pali.d_ff, pali.vocab_size, pali.prefix_len,
             pali.mlp_type) == (18, 2048, 8, 1, 256, 16384, 257216, 256, "geglu")
-    assert set(PORTED) == {ARCH, "paligemma-3b", "starcoder2-3b", "musicgen-medium"}
+    ds = get_config("deepseek-moe-16b")
+    assert (ds.block_type, ds.num_experts, ds.top_k, ds.expert_d_ff,
+            ds.shared_experts, ds.router_type, ds.capacity_factor,
+            ds.moe_dispatch) == ("moe", 64, 6, 1408, 2, "softmax", 1.25, "scatter")
+    assert set(PORTED) == set(ARCHS) and len(ARCHS) == 10
     for name in ARCHS:
-        if name in PORTED:
-            assert get_config(name).name == get_config(name, smoke=True).name == name
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get_config(name)
+        assert get_config(name).name == get_config(name, smoke=True).name == name
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    moe = dataclasses.replace(get_config(ARCH, smoke=True), block_type="moe")
-    with pytest.raises(NotImplementedError):
-        CausalLM(moe, torch.Generator().manual_seed(0))
+    for name in ("deepseek-moe-16b", "mamba2-780m", "chatglm3-6b"):
+        model = CausalLM(get_config(name, smoke=True), torch.Generator().manual_seed(0))
+        assert len(model.blocks) == 2
+    assert hasattr(model.blocks[0], "attn") and not hasattr(model.blocks[0], "moe")
 
 
 def test_smoke_config_matches_the_reference():
@@ -538,9 +541,11 @@ def test_cache_length_counts_the_prefix():
         cache_length(windowed, 512, 32)
 
 
-# -- the archs this slice completes ------------------------------------------------
+# -- the archs registered after hymba ------------------------------------------------
 
-NEW_ARCHS = ["paligemma-3b", "starcoder2-3b", "musicgen-medium"]
+NEW_ARCHS = ["paligemma-3b", "starcoder2-3b", "musicgen-medium", "deepseek-moe-16b",
+             "llama4-scout-17b-a16e", "chatglm3-6b", "qwen1.5-32b", "mamba2-780m",
+             "nemotron-4-340b"]
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
@@ -555,7 +560,11 @@ def test_ported_configs_are_the_references(arch):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_smoke_prefill_logits_match_the_reference(arch, dtype):
     """starcoder2 (gelu, qkv bias, rope theta 1e5), musicgen (gelu, a
-    prefix) and paligemma (geglu, a prefix, one kv head) at smoke size."""
+    prefix), paligemma (geglu, a prefix, one kv head), deepseek (moe,
+    softmax top 2 of 8, a shared expert), llama4 (moe, sigmoid top 1,
+    rope theta 5e5), chatglm3 (qkv bias, half rotary), qwen1.5 (qkv bias,
+    rope theta 1e6), mamba2 (ssm, no MLP) and nemotron (squared ReLU, half
+    rotary) at smoke size."""
     jc = dataclasses.replace(jax_config(arch, smoke=True), param_dtype=dtype,
                              compute_dtype=dtype,
                              scan_layers=dtype == "float32")

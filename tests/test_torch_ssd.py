@@ -77,6 +77,26 @@ def test_ssd_matches_reference_and_sequential(b, s, h, p, n, chunk):
     close(hf_p, hf_r)
 
 
+def test_mamba2_shape_matches_the_reference():
+    """mamba2-780m's state, head dim and chunk (N=128, P=64, chunk 128;
+    the CUDA-core route on the card) at B=1, S=256, H=2: the plain
+    intra-chunk pass against the Pallas kernel in interpret mode, and
+    the whole SSD against the reference's kernel path and its
+    sequential scan."""
+    b, s, h, p, n, chunk = 1, 256, 2, 64, 128, 128
+    assert route(chunk, n, p) == "cuda_cores"
+    jx, tx = mk(128, b, s, h, p, n)
+    for g, w in zip(ssd_intra_chunk(*tx, chunk=chunk),
+                    jax_intra(*jx, chunk=chunk, interpret=True)):
+        assert tuple(g.shape) == w.shape
+        close(g, w)
+    y, hf = ssd(*tx, chunk=chunk)
+    y_k, hf_k = jax_ssd(*jx, chunk=chunk, use_kernel=True, interpret=True)
+    y_r, hf_r = jax_ssd_ref(*jx)
+    for got, want in ((y, y_k), (hf, hf_k), (y, y_r), (hf, hf_r)):
+        close(got, want)
+
+
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (1, 50, 2, 8, 4, 16),
     (2, 37, 3, 16, 8, 8),
@@ -414,6 +434,7 @@ def test_tf32_split_reconstructs_v():
     (256, 16, 64, "cuda_cores"),     # chunk above 128
     (128, 16, 128, "cuda_cores"),    # P above 64
     (128, 64, 64, "cuda_cores"),     # N above 32
+    (128, 128, 64, "cuda_cores"),    # mamba2-780m's state, N=128
     (20, 6, 10, "cuda_cores"),       # P and N not multiples of 4
     (32, 16, 10, "cuda_cores"),
     (32, 6, 16, "cuda_cores"),
