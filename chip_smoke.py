@@ -233,12 +233,39 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      launch on the CUDA cores, no flash launch), chatglm3-6b whole and
      qwen1.5-32b at depth 16 of 64, the same requests: launches by route,
      tok/s and peak memory of each.
+ 14. deepseek-moe-16b training at its published width and depth 6 of 28
+     (3,736,889,344 parameters; 12 B each of bf16 parameters and gradients
+     and float32 moments make 41.8 GiB, the full depth 200 GB), seed 0, on
+     the synthetic LM stream at B=4, S=512. Phases 1-13 run in a function
+     of their own and leave only plain numbers, so this phase starts with
+     under ``PHASE14_START_GIB`` allocated on the card, which it prints.
+     (a) ``FlashAttentionFn`` at the layer's shape (bf16, 16/16 heads,
+     D=128), as 11 (a): the forward and input gradients against plain
+     autograd, the backward timed beside the plain VJP, its bound and
+     SDPA's backward; (b) one warm loss and backward of the model that (c)
+     trains: every parameter's gradient present and finite, each block's
+     moe.router, moe.wi, moe.wo and attn.wq gradients non-zero, flash
+     launched 12 times (forward and recompute), all on the tensor cores,
+     each block's recompute routing as its forward did; a warm step's
+     split (forward, backward, AdamW), one ``make_train_step`` call under
+     ``torch.cuda.set_sync_debug_mode`` with no host sync, and one
+     profiled step; (c) the main path, ``launch/train.py``'s ``train_lm``
+     with the depth cut from the caller (``--arch deepseek-moe-16b --steps
+     8 --batch 4 --seq 512``; the CLI has no depth flag): every loss
+     finite, no step skipped, every step launching flash 12 times on the
+     tensor cores and calling the plain attention 6 times (the backward's
+     VJPs); tok/s, ms a step, the peak device memory and the dropped share
+     of the experts' slots by layer; (d) float32 at full width, depth 2,
+     capacity factor 0.5 (slots drop): the scatter and dense dispatches'
+     gradients within ``MOE_GRAD_REL`` of each leaf's largest magnitude.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import io
 import json
 import re
@@ -413,6 +440,23 @@ MOE_DROP_FACTOR = 0.5
 PHASE13_ATTN = ("deepseek-moe-16b", "llama4-scout-17b-a16e", "chatglm3-6b", "qwen1.5-32b")
 PHASE13_SERVED = (("llama4-scout-17b-a16e", 8), ("mamba2-780m", None),
                   ("chatglm3-6b", None), ("qwen1.5-32b", 16))
+
+# deepseek-moe-16b training (phase 14), at phase 11's batch, sequence and
+# steps: its depth (a layer holds 587,862,016 parameters at 12 B each of
+# training state, bf16 parameters and gradients and float32 moments, so
+# 6 of 28 layers and the embedding make 41.8 GiB, beside AdamW's float32
+# temporaries on the experts' 1.375 GiB leaves and the float32 loss
+# chunk; the full depth makes 200 GB), and the depth of the float32
+# check of the two dispatches' gradients
+MOE_TRAIN_LAYERS = 6
+MOE_GRAD_LAYERS = 2
+# both dispatches' gradients on the card, float32, relative to each leaf's
+# largest magnitude: the routing is the same, and each expert slot holds
+# one row, so the two differ only where the card's products order their
+# sums differently
+MOE_GRAD_REL = 1e-4
+# what may stay allocated on the card from phases 1-13 when phase 14 starts
+PHASE14_START_GIB = 1.0
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -1837,9 +1881,10 @@ def grad_rel_errs(got, want) -> list[float]:
             for g, w in zip(got, want)]
 
 
-def check_flash_fn(gen, cfg) -> dict:
-    """11 (a), attention: ``FlashAttentionFn`` (the kernel forward) against
-    plain autograd through ``attention_ref`` at hymba's per-layer shape,
+def check_flash_fn(gen, cfg, phase="11") -> dict:
+    """11 (a), 14 (a), attention: ``FlashAttentionFn`` (the kernel forward)
+    against plain autograd through ``attention_ref`` at the config's
+    per-layer training shape,
     q, k, v as transposed views of bf16 leaves, as the model passes its
     projections; then the Function's backward timed (the plain version's
     recompute and its VJP) beside the plain VJP alone, its bound and
@@ -1871,7 +1916,7 @@ def check_flash_fn(gen, cfg) -> dict:
         library_ms=cuda_time_ms(
             lambda: torch.autograd.grad(sdpa, leaves, g, retain_graph=True), 10))
     t["bound_ms"], t["bound_by"] = flash_bwd_bound_ms(b, hq, hkv, s, d, 2, True, win)
-    print(f"[11] (a) FlashAttentionFn B={b} S={s} {hq}/{hkv} heads D={d} bf16: forward "
+    print(f"[{phase}] (a) FlashAttentionFn B={b} S={s} {hq}/{hkv} heads D={d} bf16: forward "
           f"max |kernel - plain| {fwd_err:.3g} (atol {FLASH_ATOL[bf16]}); dq, dk, dv "
           f"within {', '.join(f'{r:.3g}' for r in rel)} of their max-abs from plain "
           f"autograd (bar {FN_GRAD_REL[bf16]}); backward {t['ms']:.4f} ms (plain VJP "
@@ -1942,6 +1987,32 @@ def synced_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def profiled_step(step, state, bt):
+    """One ``make_train_step`` step under ``torch.profiler``: (the new
+    state, its wall ms, device busy ms and idle share, the LM kernels'
+    device ms and records, the device records in all and the six
+    largest by device time)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, bt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    check(int(m["skipped"]) == 0, "profiled step skipped")
+    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evts) / 1e3
+    by = lambda key: sum(e.self_device_time_total for e in evts if key in e.key) / 1e3  # noqa: E731
+    count = lambda key: sum(e.count for e in evts if key in e.key)  # noqa: E731
+    top = sorted(evts, key=lambda e: -e.self_device_time_total)[:6]
+    return state, {
+        "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+        "flash_fwd_sm90_ms": by("flash_fwd_sm90"), "flash_records": count("flash_fwd_sm90"),
+        "ssd_chunk_sm90_ms": by("ssd_chunk_sm90"), "ssd_records": count("ssd_chunk_sm90"),
+        "kernels": len(evts), "launches": sum(e.count for e in evts),
+        "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top]}
+
+
 def check_full_width_grads(cfg, dev) -> dict:
     """11 (b): one loss and backward of the full-width model (seed 0) on a
     batch of the synthetic stream: every parameter's gradient present and
@@ -1995,25 +2066,8 @@ def check_full_width_grads(cfg, dev) -> dict:
 
     step = TT.make_train_step(cfg, opt)
     state, _ = step(state, bt)  # warm
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, bt)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    check(int(m["skipped"]) == 0, "profiled step skipped")
-    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in evts) / 1e3
-    by = lambda key: sum(e.self_device_time_total for e in evts if key in e.key) / 1e3  # noqa: E731
-    count = lambda key: sum(e.count for e in evts if key in e.key)  # noqa: E731
-    top = sorted(evts, key=lambda e: -e.self_device_time_total)[:6]
-    prof_split = {
-        "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
-        "flash_fwd_sm90_ms": by("flash_fwd_sm90"), "flash_records": count("flash_fwd_sm90"),
-        "ssd_chunk_sm90_ms": by("ssd_chunk_sm90"), "ssd_records": count("ssd_chunk_sm90"),
-        "kernels": len(evts), "launches": sum(e.count for e in evts),
-        "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top]}
+    state, prof_split = profiled_step(step, state, bt)
+    wall, busy = prof_split["wall_ms"], prof_split["device_busy_ms"]
     print(f"[11] (b) a warm step's split, synchronized: forward + loss "
           f"{split['forward_ms']:.2f} ms, backward (recompute + VJPs) "
           f"{split['backward_ms']:.2f} ms, AdamW {split['adamw_ms']:.2f} ms; a no-grad "
@@ -2025,15 +2079,16 @@ def check_full_width_grads(cfg, dev) -> dict:
           f"({prof_split['ssd_records']} records), {prof_split['launches']} device "
           f"records in all; largest: " + "; ".join(
               f"{k} {ms:.2f} ms x{c}" for k, ms, c in prof_split["top"]), flush=True)
-    del state, m
+    del state
     torch.cuda.empty_cache()
     return {"parameters": n_params, "split": split, "profiled_step": prof_split}
 
 
-def train_cli(argv, per_step: list, plain_calls: dict):
-    """``launch/train.py`` with ``argv``, recording each step's kernel
-    launches and the plain versions' calls (the backward's VJPs) into
-    ``per_step`` and ``plain_calls``."""
+def train_cli(argv, per_step: list, plain_calls: dict, cfg=None):
+    """``launch/train.py`` with ``argv`` (``train_lm`` on ``cfg`` where one
+    is given), recording each step's kernel launches and the plain
+    versions' calls (the backward's VJPs) into ``per_step`` and
+    ``plain_calls``."""
     make_step = T.make_train_step
     plain = (FAO.attention_ref, SSDO.ssd_intra_chunk_ref)
 
@@ -2058,7 +2113,9 @@ def train_cli(argv, per_step: list, plain_calls: dict):
     FAO.attention_ref = counting("attention", plain[0])
     SSDO.ssd_intra_chunk_ref = counting("ssd", plain[1])
     try:
-        return T.main(argv)
+        if cfg is None:
+            return T.main(argv)
+        return T.train_lm(T.build_parser().parse_args(argv), cfg)
     finally:
         T.make_train_step = make_step
         FAO.attention_ref, SSDO.ssd_intra_chunk_ref = plain
@@ -2610,13 +2667,255 @@ def moe_phase(dev) -> dict:
             "served": others, "seconds": phase_s}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
+@contextlib.contextmanager
+def recording_moe():
+    """Within it, every call of ``models.moe.moe`` that returns records its
+    dropped share, and every routing its expert choices, under its layer (the id of the layer's
+    parameters; a dict keeps the layers in the order of their first call):
+    {id: {"dropped": [...], "idx": [...]}}, tensors left on the card. The
+    model keeps no state, so the records come from wrappers on the
+    module's functions, which read nothing back to the host."""
+    from repro_torch.models import moe as MOE
 
+    rec = {}
+    moe_fn, routing_fn = MOE.moe, MOE.routing
+
+    def layer(p):
+        return rec.setdefault(id(p), {"dropped": [], "idx": []})
+
+    def moe(p, c, x, **kw):
+        out, aux = moe_fn(p, c, x, **kw)
+        layer(p)["dropped"].append(aux["dropped"])
+        return out, aux
+
+    def routing(p, c, xf):
+        idx, gates = routing_fn(p, c, xf)
+        layer(p)["idx"].append(idx)
+        return idx, gates
+
+    MOE.moe, MOE.routing = moe, routing
+    try:
+        yield rec
+    finally:
+        MOE.moe, MOE.routing = moe_fn, routing_fn
+
+
+def dropped_by_layer(rec) -> list:
+    """[(mean, max) of the dropped share] of each moe layer's calls. A
+    block's recompute in the backward pass stops once it has what the
+    backward needs, before the share is taken: it records a forward's
+    share only."""
+    return [(float(torch.stack(r["dropped"]).float().mean()),
+             float(torch.stack(r["dropped"]).float().max())) for r in rec.values()]
+
+
+def moe_train_phase(dev) -> dict:
+    """Phase 14: deepseek-moe-16b training at full width, depth 6 of 28
+    (see the docstring)."""
+    from repro_torch.models import moe as MOE
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_gib = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"[14] allocated on the card as the phase starts: {start_gib:.4f} GiB "
+          f"(torch.cuda.memory_allocated; bar {PHASE14_START_GIB} GiB)", flush=True)
+    check(start_gib < PHASE14_START_GIB,
+          f"phase 14 starts with {start_gib:.3f} GiB of earlier phases on the card")
+    full = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
+    layers = cfg.num_layers
+    check((cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (16, 16, 128)
+          and FA.route(torch.bfloat16, cfg.head_dim) == "tensor_cores",
+          f"deepseek-moe-16b's heads {cfg.num_heads}/{cfg.num_kv_heads} at D={cfg.head_dim}")
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    # (a) the backward Function at the layer's shape
+    fn = check_flash_fn(gen, cfg, phase="14")
+    torch.cuda.empty_cache()
+
+    # (b) one warm step of the model the main path trains (seed 0, the
+    # stream's first batch): gradients, launches, the recompute's routing
+    state = TT.init_train_state(0, cfg, dev)
+    params = state.params
+    n_params = sum(p.numel() for p in params.values())
+    stream = LMD.SyntheticLMStream(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    bt = TT.batch_tensors(stream.batch(0), dev)
+    inputs = (bt["tokens"], bt["targets"], bt["mask"])
+    zero_lm_launches()
+    with recording_moe() as rec:
+        loss = TLM.lm_loss(state.model, *inputs)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    warm_by_route = dict(FA.flash_attention.launches_by_route)
+    check(bool(torch.isfinite(loss)), f"moe train: loss {float(loss.detach())}")
+    missing = [n for n, g in zip(params, grads) if g is None]
+    check(not missing, f"moe train: no gradient for {missing[:5]} ({len(missing)})")
+    bad = [n for n, g in zip(params, grads) if not torch.isfinite(g).all()]
+    check(not bad, f"moe train: non-finite gradients in {bad[:5]} ({len(bad)})")
+    named = dict(zip(params, grads))
+    watched = [f"blocks.{i}.{leaf}" for i in range(layers)
+               for leaf in ("moe.router", "moe.wi", "moe.wo", "attn.wq")]
+    zero = [n for n in watched if float(named[n].abs().max()) == 0.0]
+    check(not zero, f"moe train: zero gradients in {zero}")
+    check(warm_by_route == {"tensor_cores": 2 * layers, "cuda_cores": 0}
+          and SSD.ssd_intra_chunk.launches == 0,
+          f"moe train: flash launches by route {warm_by_route}, expected {2 * layers} "
+          f"on tensor_cores (forward + recompute)")
+    calls = list(rec.values())
+    check(len(calls) == layers and all(len(c["idx"]) == 2 for c in calls),
+          f"moe train: routing calls by layer {[len(c['idx']) for c in calls]}, expected 2 each")
+    check(all(torch.equal(*c["idx"]) for c in calls),
+          "moe train: the recompute routed otherwise than the forward")
+    warm_dropped = [d for d, _ in dropped_by_layer(rec)]
+    warm_loss = float(loss.detach())
+    print(f"[14] (b) deepseek-moe-16b at full width, depth {layers} of {full.num_layers} "
+          f"({n_params:,} parameters, bf16, float32 router, seed 0), B={TRAIN_B} "
+          f"S={TRAIN_S}: loss {warm_loss:.4f}; all {len(params)} gradients present and "
+          f"finite, moe.router, moe.wi, moe.wo and attn.wq non-zero in every block; flash "
+          f"launches {warm_by_route} (forward + recompute); the recompute routed as the "
+          f"forward in every layer; dropped share by layer "
+          f"{[round(d, 4) for d in warm_dropped]}", flush=True)
+    del loss, grads, named, rec, calls
+
+    opt = TO.AdamWConfig(lr=1e-3, warmup=20)
+    split = {}
+    for i in range(3):
+        loss, split["forward_ms"] = synced_ms(lambda: TLM.lm_loss(state.model, *inputs))
+        grads, split["backward_ms"] = synced_ms(
+            lambda: torch.autograd.grad(loss, list(params.values())))
+        _, split["adamw_ms"] = synced_ms(lambda: TO.adamw_update(
+            opt, dict(zip(params, grads)), state.mu, state.nu, params, i))
+        del loss, grads
+    step = TT.make_train_step(cfg, opt)
+    state, _ = step(state, bt)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            state, m = step(state, bt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(int(m["skipped"]) == 0 and bool(torch.isfinite(m["loss"])),
+          f"moe train: the watched step skipped or lost its loss {m}")
+    check(not syncs, "moe train: a make_train_step call synchronized with the host: "
+          + "; ".join(str(w.message)[:200] for w in syncs[:3]))
+    state, prof_split = profiled_step(step, state, bt)
+    print(f"[14] (b) a warm step's split, synchronized: forward + loss "
+          f"{split['forward_ms']:.2f} ms, backward (recompute + VJPs) "
+          f"{split['backward_ms']:.2f} ms, AdamW {split['adamw_ms']:.2f} ms over "
+          f"{len(params)} leaves; host syncs in one make_train_step call under "
+          f"torch.cuda.set_sync_debug_mode: {len(syncs)}", flush=True)
+    print(f"[14] (b) one profiled step: wall {prof_split['wall_ms']:.2f} ms, device busy "
+          f"{prof_split['device_busy_ms']:.2f} ms, idle {prof_split['idle_share']:.1%}; "
+          f"flash_fwd_sm90 {prof_split['flash_fwd_sm90_ms']:.3f} ms "
+          f"({prof_split['flash_records']} records of {2 * layers} launches), "
+          f"{prof_split['launches']} device records in all; largest: " + "; ".join(
+              f"{k} {ms:.2f} ms x{c}" for k, ms, c in prof_split["top"]), flush=True)
+    del state, m, params, step
+    torch.cuda.empty_cache()
+
+    # (c) the main path: launch/train.py's train_lm on the depth cut
+    per_step, plain_calls = [], {"attention": 0, "ssd": 0}
+    argv = ["--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+            "--seq", str(TRAIN_S), "--log-every", "1"]
+    zero_lm_launches()
+    with recording_moe() as rec:
+        trained, hist, summary = train_cli(argv, per_step, plain_calls, cfg)
+    launches = dict(FA.flash_attention.launches_by_route)
+    del trained
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(h["loss"]) for h in hist),
+          f"moe train: losses {[h['loss'] for h in hist]}")
+    check(all(h["skipped"] == 0 for h in hist),
+          f"moe train: skipped {[h['skipped'] for h in hist]}")
+    want_step = (2 * layers, 0, layers, 0)
+    check(per_step == [want_step] * TRAIN_STEPS,
+          f"moe train: per step (flash, ssd launches, plain attention, plain ssd calls) "
+          f"{per_step}, expected {want_step} each")
+    want = 2 * layers * TRAIN_STEPS
+    check(launches == {"tensor_cores": want, "cuda_cores": 0},
+          f"moe train: flash launches by route {launches}, expected {want} on tensor_cores")
+    # the recompute routes again, but stops (checkpoint's early stop) once
+    # it has what the backward needs, before the dropped share
+    check(len(rec) == layers and all(len(r["idx"]) == 2 * TRAIN_STEPS
+                                     and len(r["dropped"]) == TRAIN_STEPS for r in rec.values()),
+          f"moe train: routing and moe calls by layer "
+          f"{[(len(r['idx']), len(r['dropped'])) for r in rec.values()]}")
+    dropped = dropped_by_layer(rec)
+    cap = MOE.capacity(cfg, TRAIN_B * TRAIN_S)
+    del rec
+    secs = [h["sec"] for h in hist[1:]]
+    ms_step = 1e3 * float(np.median(secs))
+    card = nvidia_smi()
+    print(f"[14] (c) launch/train.py train_lm, --arch {cfg.name} at depth {layers} of "
+          f"{full.num_layers} (the config from the caller), --steps {TRAIN_STEPS} --batch "
+          f"{TRAIN_B} --seq {TRAIN_S}: losses {[round(h['loss'], 4) for h in hist]}, none "
+          f"skipped; every step launched flash {2 * layers} times (forward + recompute, "
+          f"all tensor-core) and called the plain attention {layers} times (the "
+          f"backward's VJPs); {summary['tokens_per_s']:.1f} tok/s over the run, "
+          f"{ms_step:.1f} ms a step (median of steps 2-{TRAIN_STEPS}, spread "
+          f"{min(secs) * 1e3:.1f}-{max(secs) * 1e3:.1f}), peak "
+          f"{summary['peak_mem_gib']:.3f} GiB (torch.cuda.max_memory_allocated); dropped "
+          f"share of the experts' slots (capacity {cap}) by layer, mean (max) over the "
+          f"run's calls: " + ", ".join(f"{a:.4f} ({b:.4f})" for a, b in dropped)
+          + f"; {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) float32 at full width, depth 2, capacity factor 0.5 (slots drop):
+    # both dispatches' gradients on the card
+    cfg32 = dataclasses.replace(full, num_layers=MOE_GRAD_LAYERS, param_dtype="float32",
+                                compute_dtype="float32", capacity_factor=MOE_DROP_FACTOR)
+    model = CausalLM(cfg32, torch.Generator(device=dev).manual_seed(1)).requires_grad_(True)
+    ps = dict(model.named_parameters())
+    got = {}
+    zero_lm_launches()
+    with recording_moe() as rec:
+        for mode in MOE.DISPATCHES:
+            model.cfg = dataclasses.replace(cfg32, moe_dispatch=mode)
+            loss = TLM.lm_loss(model, *inputs)
+            got[mode] = (float(loss.detach()), torch.autograd.grad(loss, list(ps.values())))
+            del loss
+    f32_by_route = dict(FA.flash_attention.launches_by_route)
+    f32_dropped = [a for a, _ in dropped_by_layer(rec)]
+    del rec
+    rel = dict(zip(ps, grad_rel_errs(got["scatter"][1], got["dense"][1])))
+    worst = max(rel, key=rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for m in got.values() for g in m[1])
+    del model, ps, got
+    torch.cuda.empty_cache()
+    check(finite, "moe train f32: a non-finite gradient")
+    check(f32_by_route == {"tensor_cores": 0, "cuda_cores": 4 * MOE_GRAD_LAYERS},
+          f"moe train f32: flash launches by route {f32_by_route}")
+    check(min(f32_dropped) > 0, f"moe train f32: dropped shares {f32_dropped}")
+    check(rel[worst] <= MOE_GRAD_REL,
+          f"moe train f32: scatter against dense, {worst} {rel[worst]} of its max-abs")
+    print(f"[14] (d) float32, full width, depth {MOE_GRAD_LAYERS}, capacity factor "
+          f"{MOE_DROP_FACTOR} (dropped share by layer {[round(d, 4) for d in f32_dropped]}): "
+          f"every gradient of the scatter dispatch within {rel[worst]:.3g} of its leaf's "
+          f"max-abs from the dense dispatch's (largest at {worst}; bar {MOE_GRAD_REL})",
+          flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[14] phase 14 took {phase_s:.1f} s", flush=True)
+    return {"fn": fn, "launches_by_route": launches, "train": {
+        "arch": cfg.name, "layers": layers, "of_layers": full.num_layers,
+        "parameters": n_params, "memory_at_start_gib": start_gib,
+        "warm_loss": warm_loss, "losses": [h["loss"] for h in hist],
+        "tokens_per_s": summary["tokens_per_s"], "ms_per_step": ms_step,
+        "sec_per_step": secs, "peak_mem_gib": summary["peak_mem_gib"], "split": split,
+        "profiled_step": prof_split, "host_syncs": len(syncs), "capacity": cap,
+        "dropped_by_layer": dropped, "warm_dropped_by_layer": warm_dropped,
+        "dispatch_f32": {"layers": MOE_GRAD_LAYERS, "capacity_factor": MOE_DROP_FACTOR,
+                         "max_rel_err": rel[worst], "worst_leaf": worst,
+                         "dropped_by_layer": f32_dropped},
+        "card": card, "seconds": phase_s}}
+
+
+def phases_1_to_13(dev) -> dict:
+    """Phases 1-13. Returns the object of the kernels line, which holds
+    plain numbers only: nothing of these phases stays on the card once
+    it returns."""
     # ---- 1. environment and build -------------------------------------
     card = nvidia_smi()
     print(f"[1] card: {card}", flush=True)
@@ -3051,7 +3350,7 @@ def main() -> int:
     moe = moe_phase(dev)
 
     main = timing["prologue"]
-    print(json.dumps({"kernels": [{
+    return {"kernels": [{
         "name": "hdp_z", "route": "cuda",
         "source": "src/repro_torch/kernels/hdp_z/csrc/hdp_z_lanes.cu",
         "replaces": "src/repro/kernels/hdp_z/hdp_z.py:71",
@@ -3153,8 +3452,29 @@ def main() -> int:
         "served_phase13": moe["served"],
         "stream_lanes": {k: laned[k] for k in (
             "sec_per_iter", "delta_reduce_mb_per_iter", "block_exchange", "metrics",
-            "tiled_threads")}}),
-        flush=True)
+            "tiled_threads")}}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = phases_1_to_13(dev)
+
+    # ---- 14. deepseek-moe-16b training at full width, depth 6 -------------------
+    moe_train = moe_train_phase(dev)
+    d128 = next(k for k in out["kernels"] if k["name"] == "flash_attention_d128")
+    d128.update({
+        # training (phase 14 (c)): launches over train_lm's steps, forward
+        # and recompute, and the backward Function at the layer's shape
+        "launches_train": moe_train["launches_by_route"]["tensor_cores"],
+        "launches_train_by_route": moe_train["launches_by_route"],
+        "launches_train_per_step": 2 * MOE_TRAIN_LAYERS,
+        "train_backward": moe_train["fn"]})
+    out["deepseek_moe_train"] = moe_train["train"]
+    print(json.dumps(out), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

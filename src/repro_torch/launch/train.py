@@ -54,19 +54,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.hdp_z import hdp_z as HZ
 from repro_torch.kernels.ssd import ssd as SSD
+from repro_torch.models.config import LMConfig
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import Trainer, batch_tensors, make_train_step
 
 
-def train_lm(args: argparse.Namespace):
-    """``args.steps`` AdamW steps of ``args.arch`` on the synthetic LM
-    stream, resuming from ``args.ckpt``'s latest checkpoint. The clock
+def train_lm(args: argparse.Namespace, cfg: LMConfig | None = None):
+    """``args.steps`` AdamW steps of ``cfg`` (by default ``args.arch``'s
+    config, reduced with ``args.smoke``) on the synthetic LM stream,
+    resuming from ``args.ckpt``'s latest checkpoint. A caller passes
+    ``cfg`` to train a depth cut; the CLI has no flag for it. The clock
     runs from a synchronize after the kernels' build and the model's
     init to the last step's end; ``peak_mem_gib`` is the card's peak
     over the same span. Returns the final state, the logged history
     and the printed summary."""
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg is None:
+        cfg = get_config(args.arch, smoke=args.smoke)
     stream = SyntheticLMStream(cfg.vocab_size, args.batch, args.seq,
                                prefix_len=cfg.prefix_len, d_model=cfg.d_model)
     opt = AdamWConfig(lr=args.lr, warmup=20)
