@@ -258,6 +258,29 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      of the experts' slots by layer; (d) float32 at full width, depth 2,
      capacity factor 0.5 (slots drop): the scatter and dense dispatches'
      gradients within ``MOE_GRAD_REL`` of each leaf's largest magnitude.
+ 15. the data-parallel sampler (``core/sharded.py::ShardedHDP``), after
+     ``torch.cuda.empty_cache()``: (a) the main path, ``launch/train.py
+     --hdp pubmed --scale 0.01 --topics 1000 --bucket 256 --iters 3`` in
+     a child process with torchrun's environment at world size 1, over
+     NCCL: after each iteration the gathered n == count_n(z), n.sum() ==
+     tokens, the flag topic empty, |sum(psi) - 1| < 1e-4, and hdp_z
+     launched once more, on the lanes route; its tok/s beside phase 3's;
+     then one more iteration on its own draws, in prologue mode and in
+     table mode with compact tables, saved with them, and from the
+     prologue one an iteration to warm up, ``SHARD_TIMED_ITERS`` timed and
+     one split by sub-step; (b)
+     2 ranks (data 2) and 4 ranks
+     ((data, model) = (2, 2)) on the one card over gloo, the collectives
+     staged through pinned host memory, at full width (the PubMed replica
+     at 0.01, K=1000, W=256, V padded to a multiple of the model axis:
+     6,904 at (2, 2)) from (a)'s state after its 3 iterations, the
+     documents padded to a multiple of the ranks with empty ones: given
+     (a)'s draws (a padded word's PPU count 0), z, n, dh, l and Psi after one
+     iteration bitwise (a)'s in both modes, every rank's sweeps launched
+     on the card on the lanes route; then the warm-up, timed and split
+     iterations of (a) on their own draws; (c) each collective's bytes
+     (the tensors each rank handed to it), each sub-step's wall ms, and
+     s/iter for 1, 2 and 4 ranks.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -268,9 +291,13 @@ import contextlib
 import gc
 import io
 import json
+import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -291,6 +318,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import hdp as H  # noqa: E402
 from repro_torch.core import sharded as SH  # noqa: E402
+from repro_torch.core.collectives import Collectives  # noqa: E402
 from repro_torch.core.polya_urn import ppu_sample  # noqa: E402
 from repro_torch.core.stick import gem_prior_sample  # noqa: E402
 from repro_torch.core.streaming import StreamingHDP  # noqa: E402
@@ -314,6 +342,7 @@ from repro_torch.kernels.ssd import ops as SSDO  # noqa: E402
 from repro_torch.kernels.ssd.ops import SSDIntraChunkFn  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
     decay_to_end, segsum, ssd_intra_chunk_ref)
+from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.launch import monitor as MON  # noqa: E402
 from repro_torch.launch import serve as SV  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
@@ -457,6 +486,15 @@ MOE_GRAD_LAYERS = 2
 MOE_GRAD_REL = 1e-4
 # what may stay allocated on the card from phases 1-13 when phase 14 starts
 PHASE14_START_GIB = 1.0
+
+# the data-parallel sampler (phase 15): the main path's iterations at
+# world size 1, the rank counts and (data, model) grids of (b) on the one
+# card, the iterations each rank count times after the fed one, and how
+# long a child process may take
+SHARD_ITERS = 3
+SHARD_GRIDS = ((2, (2, 1)), (4, (2, 2)))
+SHARD_TIMED_ITERS = 3
+SHARD_CHILD_TIMEOUT_S = 300
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -2912,6 +2950,278 @@ def moe_train_phase(dev) -> dict:
         "card": card, "seconds": phase_s}}
 
 
+def shard_argv() -> list[str]:
+    """``launch/train.py``'s arguments for phase 15's main path (phase 3's)."""
+    return ["--hdp", "pubmed", "--scale", "0.01", "--iters", str(SHARD_ITERS),
+            "--topics", "1000", "--max-len", "256", "--bucket", "256",
+            "--log-every", "1", "--seed", "0"]
+
+
+def zero_hdp_z_launches() -> None:
+    hdp_z_cuda.launches = 0
+    hdp_z_cuda.launches_by_route.update(dict.fromkeys(HZ.ROUTES, 0))
+
+
+def timed_iterations(sh, state, tokens, mask) -> dict:
+    """Iterations on the state's own draws: one to warm up, then
+    ``SHARD_TIMED_ITERS`` timed (the card synchronized around each), then
+    one split by sub-step (``ShardedHDP.iteration``'s ``timings``)."""
+    state = sh.iteration(state, tokens, mask)
+    secs = []
+    for _ in range(SHARD_TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = sh.iteration(state, tokens, mask)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    ms: dict = {}
+    sh.iteration(state, tokens, mask, timings=ms)
+    return {"timed_s": secs, "ms": ms}
+
+
+def compact_twin(sh):
+    """``sh``'s grid and config in table mode with compact (bf16/int16)
+    tables: phase 15's second z-step."""
+    return SH.ShardedHDP(sh.comm, sh.cfg._replace(alias_in_kernel="off"),
+                         compact_tables=True)
+
+
+def fed_result(sh, state) -> dict:
+    """What (b) holds bitwise to world 1's: z, n, dh, l and Psi."""
+    return {"z": state.z.cpu(), "n": state.n.cpu(), "dh": sh.last["dh"].cpu(),
+            "l": state.l.cpu(), "psi": state.psi.cpu()}
+
+
+def shard_world1(work: str) -> None:
+    """Phase 15 (a), in a child process with torchrun's environment at world
+    size 1: ``launch/train.py`` over NCCL, each iteration checked; after
+    the last, one iteration on its own draws in prologue mode and one on
+    compact tables, saved with the draws and the results to
+    ``work/world1.pt`` for (b), then the timed iterations. Writes
+    ``work/world1.json``."""
+    work = Path(work)
+    rec = {"iterations": []}
+
+    def on_iteration(sh, state, tokens, mask):
+        it, cfg = state.it, sh.cfg
+        z, n = sh.gather_state(state)
+        by_route = dict(hdp_z_cuda.launches_by_route)
+        check(hdp_z_cuda.launches == it and by_route["lanes"] == it,
+              f"15 (a) iteration {it}: launches {hdp_z_cuda.launches}, by route "
+              f"{by_route}, expected {it} on lanes")
+        check(torch.equal(n, H.count_n(z, tokens, mask, cfg.K, cfg.V)),
+              f"15 (a) iteration {it}: n != count_n(z)")
+        check(int(n.sum()) == int(mask.sum()), f"15 (a) iteration {it}: n.sum() != tokens")
+        check(int(n[-1].sum()) == 0, f"15 (a) iteration {it}: flag topic holds tokens")
+        check(abs(float(state.psi.sum()) - 1.0) < 1e-4,
+              f"15 (a) iteration {it}: psi off the simplex")
+        rec["iterations"].append({"it": it, "launches_by_route": by_route,
+                                  "bytes": sh.last["bytes"]})
+        if it < SHARD_ITERS:
+            return
+        varphi = sh.draw_varphi(state)
+        u = sh.draw_uniforms(state, tokens.shape)
+        nxt = sh.iteration(state, tokens, mask, varphi=varphi, u=u)
+        want = {"prologue": fed_result(sh, nxt)}
+        rec["fed_bytes"] = sh.last["bytes"]
+        twin = compact_twin(sh)
+        after = twin.iteration(state, tokens, mask, varphi=varphi, u=u)
+        want["compact"] = fed_result(twin, after)
+        rec["fed_bytes_compact"] = twin.last["bytes"]
+        check(dict(hdp_z_cuda.launches_by_route) == {"lanes": it + 2, "warp": 0},
+              f"15 (a): the fed iterations' sweeps {hdp_z_cuda.launches_by_route}")
+        torch.save({
+            "cfg": cfg._asdict(), "tokens": tokens.cpu(), "mask": mask.cpu(),
+            "z": state.z.cpu(), "n": state.n.cpu(), "psi": state.psi.cpu(),
+            "l": state.l.cpu(), "seed": state.seed, "it": state.it,
+            "varphi": varphi.cpu(), "u": u.cpu(), "next": want}, work / "world1.pt")
+        rec.update(timed_iterations(sh, nxt, tokens, mask))
+
+    zero_hdp_z_launches()
+    _, history, summary = T.train_hdp(T.build_parser().parse_args(shard_argv()),
+                                      on_iteration=on_iteration)
+    check(len(rec["iterations"]) == SHARD_ITERS, f"15 (a): {len(rec['iterations'])} iterations")
+    rec.update(summary=summary, history=history,
+               launches_by_route=dict(hdp_z_cuda.launches_by_route))
+    (work / "world1.json").write_text(json.dumps(rec))
+
+
+def shard_rank(work: str, rank: int, world: int, shape: tuple,
+               backend: str = "gloo") -> None:
+    """Phase 15 (b), one rank of ``world``: on gloo, every rank on the one
+    card; on NCCL (a host with a card a rank), rank r on ``cuda:r``.
+    (a)'s saved state and draws, sliced to the rank's documents and
+    columns (documents padded with empty rows to a multiple of the
+    ranks), one iteration in each of (a)'s two modes held bitwise to
+    (a)'s, then the timed iterations. Writes
+    ``work/rank{world}.{rank}.json``."""
+    work = Path(work)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    MESH.init_distributed(backend, dev, rank=rank, world_size=world,
+                          init_method=f"file://{work / f'pg{world}'}",
+                          local_rank=rank, local_world_size=world)
+    try:
+        w1 = torch.load(work / "world1.pt")
+        grid = MESH.Grid(tuple(shape), MESH.AXES_2D, rank)
+        cfg1 = H.HDPConfig(**w1["cfg"])
+        m = grid.size("model")
+        cfg = cfg1._replace(V=-(-cfg1.V // m) * m)  # as launch/train.py pads V
+        sh = SH.ShardedHDP(Collectives(grid, backend, dev), cfg)
+        d1 = w1["tokens"].shape[0]
+        d = -(-d1 // world) * world
+
+        def rows_of(t):  # documents padded with empty rows, the rank's block
+            t = torch.cat([t, t.new_zeros((d - d1,) + tuple(t.shape[1:]))])
+            return t[sh.doc_rows(d)].to(dev)
+
+        def cols_of(t):  # words padded with absent ones (no tokens, no PPU
+            # count), the rank's columns
+            t = torch.cat([t, t.new_zeros((t.shape[0], cfg.V - cfg1.V))], 1)
+            return t[:, sh.vocab_cols].contiguous().to(dev)
+
+        tokens, mask = rows_of(w1["tokens"]), rows_of(w1["mask"])
+        n = cols_of(w1["n"])
+        state = SH.ShardState(z=rows_of(w1["z"]), n=n, phi=torch.zeros(n.shape, device=dev),
+                              varphi=torch.zeros_like(n), psi=w1["psi"].to(dev),
+                              l=w1["l"].to(dev), seed=w1["seed"], it=w1["it"])
+        zero_hdp_z_launches()
+        varphi, u = cols_of(w1["varphi"]), rows_of(w1["u"])
+        after = {}
+        for mode, s in (("prologue", sh), ("compact", compact_twin(sh))):
+            tag = f"15 (b) {world} ranks, rank {rank}, {mode}"
+            nxt = after[mode] = s.iteration(state, tokens, mask, varphi=varphi, u=u)
+            want = w1["next"][mode]
+            got = s.gather_state(nxt)
+            if got is not None:
+                z, n_all = (t.cpu() for t in got)
+                check(torch.equal(z[:d1], want["z"]) and not z[d1:].any(),
+                      f"{tag}: z differs from world 1's")
+                check(torch.equal(n_all[:, :cfg1.V], want["n"])
+                      and not n_all[:, cfg1.V:].any(), f"{tag}: n differs from world 1's")
+            for name, a in (("dh", s.last["dh"]), ("l", nxt.l), ("psi", nxt.psi)):
+                check(torch.equal(a.cpu(), want[name]),
+                      f"{tag}: {name} differs from world 1's")
+        by_route = dict(hdp_z_cuda.launches_by_route)
+        check(by_route == {"lanes": 2, "warp": 0} and tokens.is_cuda,
+              f"15 (b) {world} ranks, rank {rank}: sweep launches by route "
+              f"{by_route}, expected 2 on lanes (prologue, compact tables)")
+        rec = {"launches_by_route": by_route, "bytes": sh.last["bytes"],
+               "docs": int(tokens.shape[0]), "cols": int(n.shape[1]), "V": cfg.V,
+               **timed_iterations(sh, after["prologue"], tokens, mask)}
+        (work / f"rank{world}.{rank}.json").write_text(json.dumps(rec))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_children(work: Path, name: str, calls: list[str], env: dict) -> None:
+    """Run ``python -c call`` for each call at once (the ranks of one
+    run), each logging to ``work/name.i.log``; fail with the log of the
+    first that does not exit 0. Every child is stopped before it returns."""
+    procs, logs = [], []
+    try:
+        for i, call in enumerate(calls):
+            log = open(work / f"{name}.{i}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke as C; {call}"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + SHARD_CHILD_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail(f"{name}: still running after {SHARD_CHILD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            text = (work / f"{name}.{i}.log").read_text()
+            fail(f"{name} child {i} exited {p.returncode}:\n{text[-4000:]}")
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_phase(dev, phase3: dict, backend: str = "gloo") -> dict:
+    """Phase 15, the data-parallel sampler; see the module docstring.
+    ``backend="nccl"`` runs (b)'s ranks a card each, on a host with 4
+    cards (not part of ``main``: the script needs one card)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_phase15_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    try:
+        # (a) world size 1 over NCCL, through launch/train.py
+        run_children(work, "world1", [f"C.shard_world1({str(work)!r})"], dict(
+            env, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port())))
+        w1 = json.loads((work / "world1.json").read_text())
+        summary = w1["summary"]
+        check(summary["backend"] == "nccl" and summary["ranks"] == 1,
+              f"15 (a): ran {summary['ranks']} rank(s) on {summary['backend']}")
+        main_by_route = w1["iterations"][-1]["launches_by_route"]
+        print(f"[15] (a) launch/train.py under torchrun's environment, world size 1, "
+              f"NCCL, {summary['device']}: {SHARD_ITERS} iterations, n == count_n(z), "
+              f"tokens, flag topic empty and psi on the simplex after each; hdp_z "
+              f"launches by route {main_by_route}; {summary['tokens_per_s']} tok/s, "
+              f"{summary['sec_per_iter']} s/iter (phase 3, one process: "
+              f"{phase3['tokens_per_s']} tok/s, {phase3['sec_per_iter']} s/iter)",
+              flush=True)
+        for rec in w1["iterations"]:
+            print(f"[15] (a) iteration {rec['it']} collective bytes a rank: "
+                  f"{rec['bytes']}", flush=True)
+        runs = {1: {"ms": w1["ms"], "bytes": w1["fed_bytes"], "timed_s": w1["timed_s"]}}
+
+        # (b) 2 and 4 ranks on the one card over gloo, bitwise world 1
+        for world, shape in SHARD_GRIDS:
+            run_children(work, f"ranks{world}", [
+                f"C.shard_rank({str(work)!r}, {r}, {world}, {tuple(shape)!r}, "
+                f"{backend!r})" for r in range(world)], env)
+            recs = [json.loads((work / f"rank{world}.{r}.json").read_text())
+                    for r in range(world)]
+            runs[world] = {
+                "grid": dict(zip(MESH.AXES_2D, shape)), "backend": backend,
+                "ms": {k: max(r["ms"][k] for r in recs) for k in recs[0]["ms"]},
+                "bytes": recs[0]["bytes"],
+                "timed_s": [max(r["timed_s"][i] for r in recs)
+                            for i in range(SHARD_TIMED_ITERS)],
+                "launches_by_route": [r["launches_by_route"] for r in recs],
+                "docs_per_rank": recs[0]["docs"], "cols_per_rank": recs[0]["cols"],
+                "V": recs[0]["V"]}
+            where = ("gloo on the one card (host-staged collectives)" if backend == "gloo"
+                     else "NCCL, a card a rank")
+            print(f"[15] (b) {world} ranks, (data, model) = {tuple(shape)}, V = "
+                  f"{runs[world]['V']}, {where}: one iteration on world 1's "
+                  f"draws bitwise world 1's (z, n, dh, l, psi), in prologue mode and "
+                  f"on compact tables; every rank's sweeps on the card, launches by "
+                  f"route {runs[world]['launches_by_route']}",
+                  flush=True)
+
+        # (c) bytes, sub-step ms and s/iter by rank count
+        for world, run in runs.items():
+            run["s_per_iter"] = sum(run["timed_s"]) / len(run["timed_s"])
+            print(f"[15] (c) {world} rank(s): {run['s_per_iter']:.4f} s/iter (the "
+                  f"slowest rank's, mean of {SHARD_TIMED_ITERS} after a warm-up: "
+                  f"{run['timed_s']}); wall ms by sub-step, one more iteration "
+                  f"synchronized at each (the slowest rank's): {run['ms']}; "
+                  f"collective bytes a rank: {run['bytes']}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[15] phase 15 took {phase_s:.1f} s", flush=True)
+    return {"launches": sum(main_by_route.values()), "launches_by_route": main_by_route,
+            "launches_ranks": {w: r["launches_by_route"] for w, r in runs.items() if w > 1},
+            "summary": summary, "runs": runs, "seconds": phase_s}
+
+
 def phases_1_to_13(dev) -> dict:
     """Phases 1-13. Returns the object of the kernels line, which holds
     plain numbers only: nothing of these phases stays on the card once
@@ -3450,6 +3760,7 @@ def phases_1_to_13(dev) -> dict:
         "deepseek_moe": {k: moe[k] for k in ("serve", "consistency_f32_depth4",
                                              "dispatch_f32", "host_syncs", "seconds")},
         "served_phase13": moe["served"],
+        "hdp_main": {k: summary[k] for k in ("tokens_per_s", "sec_per_iter")},
         "stream_lanes": {k: laned[k] for k in (
             "sec_per_iter", "delta_reduce_mb_per_iter", "block_exchange", "metrics",
             "tiled_threads")}}
@@ -3474,6 +3785,17 @@ def main() -> int:
         "launches_train_per_step": 2 * MOE_TRAIN_LAYERS,
         "train_backward": moe_train["fn"]})
     out["deepseek_moe_train"] = moe_train["train"]
+
+    # ---- 15. the data-parallel sampler ---------------------------------------------
+    sharded = sharded_phase(dev, out["hdp_main"])
+    hdp_z = next(k for k in out["kernels"] if k["name"] == "hdp_z")
+    hdp_z.update({
+        # the sharded main path through launch/train.py at world size 1
+        # (phase 15 (a)), and each rank's sweep at 2 and 4 ranks (15 (b))
+        "launches_sharded": sharded["launches"],
+        "launches_sharded_by_route": sharded["launches_by_route"],
+        "launches_sharded_ranks": sharded["launches_ranks"]})
+    out["sharded"] = {k: sharded[k] for k in ("summary", "runs", "seconds")}
     print(json.dumps(out), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

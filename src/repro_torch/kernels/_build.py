@@ -14,6 +14,7 @@ and read by ``ptxas_report``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -97,20 +98,28 @@ def build(source: Path) -> Path:
         BUILD_SECONDS.setdefault(source.name, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    cmd = [_nvcc(), *nvcc_flags(source), "-o", tmp, str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) on {source.name}:\n"
-            f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
-        )
-    out.with_suffix(".ptxas.txt").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    BUILD_SECONDS[source.name] = time.perf_counter() - t0
+    # processes that reach one build together (the ranks of a sharded run)
+    # compile it once: the first holds the lock, the others wait for it
+    # and then find the library; the lock ends with its holder's process
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            BUILD_SECONDS.setdefault(source.name, 0.0)
+            return out
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        cmd = [_nvcc(), *nvcc_flags(source), "-o", tmp, str(source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}) on {source.name}:\n"
+                f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
+            )
+        out.with_suffix(".ptxas.txt").write_text(res.stdout + res.stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        BUILD_SECONDS[source.name] = time.perf_counter() - t0
     return out
 
 

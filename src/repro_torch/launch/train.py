@@ -1,5 +1,6 @@
 """Training driver (counterpart of ``repro/launch/train.py``): the HDP
-sampler on one device, with sweep lanes on several, and LM training.
+sampler on one device, on a grid of ranks under ``torchrun``, with sweep
+lanes on several devices, and LM training.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --steps 8 --batch 4 --seq 512                 # LM, on the card
@@ -8,12 +9,21 @@ sampler on one device, with sweep lanes on several, and LM training.
   PYTHONPATH=src python -m repro_torch.launch.train --hdp ap --scale 0.01 \
       --iters 2 --topics 20 --max-len 64            # on the card
   ... --device cpu                                  # plain versions, CPU
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --hdp ap --scale 0.01 --iters 2 --topics 20 --max-len 64 --device cpu
+                                                    # 4 ranks (gloo), a grid
   ... --stream --block-docs 16 --ckpt DIR --ckpt-every 1 --ckpt-every-blocks 2
                                                     # block-streamed, resumable
   ... --stream --block-docs 16 --devices 4          # 4 sweep lanes
   ... --trace t.json --metrics m.jsonl              # Chrome trace, metrics
 
 Prints one dict per ``--log-every`` iterations, then a JSON summary line.
+Under ``torchrun`` each rank runs ``core/sharded.py::ShardedHDP`` on the
+grid ``launch/mesh.py::host_grid_shape`` gives the world (as the
+reference runs ``ShardedHDP`` on ``make_host_mesh``): gloo with
+``--device cpu``, NCCL on ``cuda:{LOCAL_RANK}`` otherwise (one card a
+rank; NCCL refuses two ranks on one card, and that raises), and rank 0
+alone prints.
 With ``--stream`` the corpus is swept block by block
 (``core/streaming.py``); a rerun with the same ``--ckpt`` resumes from
 its latest checkpoint, mid-iteration too, and prints
@@ -41,11 +51,15 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core import hdp as H
+from repro_torch.core.collectives import Collectives
+from repro_torch.core.sharded import ShardedHDP, ShardState
 from repro_torch.core.streaming import StreamingHDP
+from repro_torch.data.corpus import shard_balanced
 from repro_torch.data.lm_data import SyntheticLMStream, batches
 from repro_torch.data.stream import ShardedCorpusStore
 from repro_torch.data.synthetic import paper_corpus
@@ -54,6 +68,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.hdp_z import hdp_z as HZ
 from repro_torch.kernels.ssd import ssd as SSD
+from repro_torch.launch import mesh as MESH
 from repro_torch.models.config import LMConfig
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import Trainer, batch_tensors, make_train_step
@@ -141,7 +156,14 @@ def train_hdp(
     iteration. On the card the kernels are built before the first
     iteration. Returns the final state, the logged history and the
     printed summary.
+
+    Started by ``torchrun``, it runs ``train_hdp_sharded`` instead, and
+    ``on_iteration`` gets ``(sh, state, tokens, mask)``: the
+    ``ShardedHDP``, the rank's ``ShardState`` and its documents.
     """
+    launch = MESH.torchrun_env()
+    if launch is not None:
+        return train_hdp_sharded(args, launch, on_iteration)
     corpus, cfg, tokens, mask, state = prepare_hdp(args)
     device = tokens.device
     if device.type == "cuda" and cfg.z_impl == "cuda":
@@ -173,6 +195,72 @@ def train_hdp(
     }
     print(json.dumps(summary), flush=True)
     return state, history, summary
+
+
+def train_hdp_sharded(
+    args: argparse.Namespace, launch: MESH.LaunchEnv,
+    on_iteration: Callable[[ShardedHDP, ShardState, torch.Tensor,
+                            torch.Tensor], None] | None = None,
+):
+    """One rank of the data-parallel run (the reference's ``train_hdp`` on
+    a mesh over every device): the corpus ``shard_balanced`` over the
+    ranks, V padded to a multiple of the ``model`` axis, every iteration
+    ``ShardedHDP.iteration`` on the rank's documents. The clock is
+    ``train_hdp``'s, on each rank; rank 0 prints the log lines and the
+    summary, whose ``tokens_per_s`` counts the whole corpus. The kernels
+    are built before the first iteration, once for all the ranks of a
+    host (``kernels/_build.py`` locks each build). Returns what
+    ``train_hdp`` returns, on every rank."""
+    device = resolve_device(args.device)
+    backend = "gloo" if device.type == "cpu" else "nccl"
+    if device.type == "cuda":
+        device = torch.device("cuda", launch.local_rank)
+    MESH.init_distributed(backend, device, rank=launch.rank,
+                          world_size=launch.world_size,
+                          local_rank=launch.local_rank,
+                          local_world_size=launch.local_world_size)
+    try:
+        grid = MESH.Grid.for_world(launch.world_size, launch.rank)
+        corpus, cfg = hdp_corpus_config(args)
+        corpus = shard_balanced(corpus, grid.world_size)
+        m = grid.size("model")
+        cfg = cfg._replace(V=-(-corpus.V // m) * m)
+        sh = ShardedHDP(Collectives(grid, backend, device), cfg)
+        rows = sh.doc_rows(corpus.num_docs)
+        tokens = torch.from_numpy(corpus.tokens[rows]).to(device)
+        mask = torch.from_numpy(corpus.mask[rows]).to(device)
+        if device.type == "cuda" and cfg.z_impl == "cuda":
+            _build.build_all(HZ.SOURCES)
+        state = sh.init_state(args.seed, tokens, mask)
+        lead = grid.rank == 0
+        history = []
+        dt = 0.0
+        for i in range(args.iters):
+            synchronize(device)
+            t0 = time.perf_counter()
+            state = sh.iteration(state, tokens, mask)
+            synchronize(device)
+            dt += time.perf_counter() - t0
+            if (i + 1) % args.log_every == 0:
+                history.append({"iter": state.it,
+                                **sh.diagnostics(state, tokens, mask)})
+                if lead:
+                    print(history[-1], flush=True)
+            if on_iteration is not None:
+                on_iteration(sh, state, tokens, mask)
+        summary = {
+            "corpus": args.hdp, "tokens": corpus.num_tokens,
+            "iters": args.iters, "sec_per_iter": dt / args.iters,
+            "tokens_per_s": corpus.num_tokens * args.iters / dt,
+            "device": str(device), "z_impl": cfg.z_impl,
+            "ranks": grid.world_size, "backend": backend,
+            "grid": dict(zip(grid.axes, grid.shape)),
+        }
+        if lead:
+            print(json.dumps(summary), flush=True)
+        return state, history, summary
+    finally:
+        dist.destroy_process_group()
 
 
 def train_hdp_streaming(args: argparse.Namespace):
@@ -310,6 +398,9 @@ def main(argv: list[str] | None = None):
     args = ap.parse_args(argv)
     if args.devices != 1 and not args.stream:
         ap.error("--devices sets the streamed trainer's sweep lanes: pass --stream")
+    if MESH.torchrun_env() is not None and (args.arch or args.stream):
+        ap.error("under torchrun the ranks run the sharded HDP sampler: pass "
+                 "--hdp without --stream")
     try:
         resolve_device(args.device)
     except RuntimeError as e:

@@ -1,5 +1,6 @@
 """The port's kernel build flags, without nvcc: each source's own flags,
-and a library path that follows them."""
+a library path that follows them, and one compile where several
+processes build a source at once."""
 
 import pytest
 
@@ -94,3 +95,31 @@ def test_the_ssd_ablation_patches_apply(tmp_path, monkeypatch):
         assert path.name == SSD.SM90_SOURCE.name
         assert (path.read_text() == text) == (name == "kernel")
         assert _build.nvcc_flags(path) == _build.nvcc_flags(SSD.SM90_SOURCE)
+
+
+def test_ranks_that_build_together_compile_once(tmp_path, monkeypatch):
+    """The ranks of a sharded run reach one build together: the lock
+    beside the library lets one compile and the others load its result."""
+    import threading
+
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo x >> {calls}\n"
+        "sleep 0.3\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo lib > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    outs = []
+    threads = [threading.Thread(target=lambda: outs.append(_build.build(HZ.SOURCE)))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(outs) == 4 and len(set(outs)) == 1 and outs[0].read_text() == "lib\n"
+    assert calls.read_text().count("x") == 1

@@ -110,6 +110,47 @@ def test_streaming_modules_import_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
 
 
+SHARDED_MODULES = (
+    "repro_torch.launch.mesh", "repro_torch.core.collectives",
+    "repro_torch.core.sharded", "repro_torch.data.corpus",
+)
+
+
+def test_sharded_modules_import_no_jax_and_no_repro():
+    """The data-parallel sampler's modules (the grid, the collectives,
+    ``ShardedHDP``, the balanced shards), alone in a fresh process; none
+    starts a process group when imported."""
+    code = (
+        "import importlib, sys\n"
+        f"for n in {SHARDED_MODULES!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_sharded_cli_under_torchrun_env_without_card_exits_1_with_message():
+    """Under torchrun's environment the default device is still the card:
+    with none present the CLI exits 1 before any process group starts."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device runs")
+    env = _env()
+    env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--hdp", "ap",
+         "--scale", "0.01", "--iters", "2", "--topics", "20",
+         "--max-len", "64"],
+        env=env, capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 1
+    assert "no CUDA device is present" in out.stderr
+    assert "{" not in out.stdout  # no result was printed
+
+
 OBS_MODULES = (
     "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
     "repro_torch.obs.diagnostics", "repro_torch.data.deltawire",
