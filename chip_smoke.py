@@ -281,6 +281,28 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      iterations of (a) on their own draws; (c) each collective's bytes
      (the tensors each rank handed to it), each sub-step's wall ms, and
      s/iter for 1, 2 and 4 ranks.
+ 16. the sharded LM trainer (``train/sharding.py``), the sampler's
+     ``--ckpt`` without ``--stream`` and the compression wire, after
+     ``torch.cuda.empty_cache()``, in a child process with torchrun's
+     environment at world size 1 over NCCL: (a) ``launch/train.py``'s
+     ``train_lm`` under torchrun (``train_lm_sharded``) on deepseek-moe-16b
+     at full width, depth 6, B=4, S=512, 3 steps: the losses bitwise
+     phase 14's first 3, flash launched 2 x 6 times a step, all on the
+     tensor cores; ms a step, tok/s, peak memory; (b) the sampler's
+     ``--ckpt`` round trip on phase 3's corpus: 2 iterations, a save and
+     a restore, 2 more, bitwise 4 in one run (z, n, phi, varphi, psi,
+     l), through ``ShardedHDP.save``/``restore`` at world size 1 in the
+     child and ``launch/train.py``'s ``save_hdp``/``restore_hdp`` (the
+     generator's state too) in this process; (c) ``compressed_psum`` over NCCL at
+     world size 1 on 16,777,216 float32: NCCL takes the int64 lanes and
+     the MAX all-reduce, the mean is the int32 sum of q's dequantized, the
+     residual x - deq, the wire 2 bytes an element; timed beside a plain
+     float32 psum. ``four_cards`` (not part of ``main``; run it with four
+     cards: ``python3 -c "import chip_smoke as C; C.four_cards()"``)
+     trains the same model sharded on (2, 2), one card a rank over NCCL:
+     depth 6 against world 1, the full depth 28 (ms a step, tok/s, each
+     card's peak memory), a save on (2, 2) restored on (4, 1) bitwise,
+     and ``compressed_psum`` on (2, 1, 2).
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -495,6 +517,21 @@ SHARD_ITERS = 3
 SHARD_GRIDS = ((2, (2, 1)), (4, (2, 2)))
 SHARD_TIMED_ITERS = 3
 SHARD_CHILD_TIMEOUT_S = 300
+
+# the sharded LM trainer (phase 16): steps of (a) at world size 1 (held
+# bitwise to phase 14's first steps), the sampler's iterations a side of
+# the checkpoint in (b), and the float32 elements of (c)'s compressed psum
+SHARDED_LM_STEPS = 3
+RESUME_ITERS = 2
+COMP_ELEMENTS = 1 << 24
+# the four-card run (``four_cards``): its depth-6 losses on (2, 2) against
+# world 1's, relative (bf16: the gradients are summed over the ranks in
+# bf16 and each rank's expert buffers hold its own rows, so the sums
+# round elsewhere), and the depth of its save-and-restore across grids
+# (a layer and the embedding hold 798 M parameters, 7.4 GiB of
+# checkpoint at 10 B each)
+FOUR_CARD_LOSS_REL = 1e-2
+FOUR_CARD_CKPT_LAYERS = 1
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -3222,6 +3259,370 @@ def sharded_phase(dev, phase3: dict, backend: str = "gloo") -> dict:
             "summary": summary, "runs": runs, "seconds": phase_s}
 
 
+# ---- 16. the sharded LM trainer, the sampler's --ckpt, compression ------------------
+
+def lm_argv(steps: int, *extra: str) -> list[str]:
+    """``launch/train.py`` arguments of deepseek-moe-16b training at phase
+    14's batch and sequence (the depth cut comes from the caller)."""
+    return ["--arch", "deepseek-moe-16b", "--steps", str(steps), "--batch", str(TRAIN_B),
+            "--seq", str(TRAIN_S), "--log-every", "1", *extra]
+
+
+def hdp_argv(iters: int, *extra: str) -> list[str]:
+    """Phase 3's main path for ``iters`` iterations."""
+    return ["--hdp", "pubmed", "--scale", "0.01", "--iters", str(iters), "--topics",
+            "1000", "--max-len", "256", "--bucket", "256", "--log-every", str(iters),
+            "--seed", "0", *extra]
+
+
+def hdp_state_fields(state) -> dict:
+    return {f: getattr(state, f).cpu() for f in ("z", "n", "phi", "varphi", "psi", "l")}
+
+
+def same_fields(a: dict, b: dict) -> list[str]:
+    """The fields of two states that differ."""
+    return [f for f in a if not torch.equal(a[f], b[f])]
+
+
+def torchrun_env(rank: int, world: int, port: int, local_rank: int | None = None) -> dict:
+    """The environment ``torchrun`` gives rank ``rank`` of ``world`` on one
+    host (``MASTER_*`` on localhost)."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK=str(rank if local_rank is None else local_rank),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port))
+
+
+def check_compressed_psum(comm, n: int, tag: str) -> dict:
+    """``compressed_psum`` of a random (n,) float32 tensor over ``pod``: the
+    mean against the sum of every pod's dequantized int8 (gathered in
+    float32), the residual exactly x - deq, the wire's bytes 2 an element;
+    both the compressed and a plain float32 psum timed by events."""
+    from repro_torch.train import compression as COMP
+
+    dev = comm.device
+    gen = torch.Generator(device=dev).manual_seed(16 + comm.grid.rank)
+    x = torch.randn((n,), generator=gen, device=dev)
+    resid = torch.zeros_like(x)
+    comm.sent.clear()
+    mean, new_resid = COMP.compressed_psum(comm, x, "pod", resid)
+    wire = comm.sent[COMP.BYTES_WIRE]
+    amax = comm.pmax(x.abs().max().reshape(1), "pod")[0]
+    scale = torch.clamp_min(amax, 1e-30) / 127.0
+    q = COMP.quantize_int8(x, scale)
+    deq = q.float() * scale
+    pods = comm.grid.size("pod")
+    total = comm.psum(q.to(torch.int32), "pod")  # the sum the wire must carry
+    check(torch.equal(mean, total.float() * scale / pods),
+          f"{tag}: the int64-lane sum differs from the int32 sum of q")
+    check(torch.equal(new_resid, x - deq), f"{tag}: residual != x - deq")
+    check(wire == 2 * n, f"{tag}: {wire} wire bytes for {n} elements")
+    for _ in range(2):  # warm
+        COMP.compressed_psum(comm, x, "pod", resid)
+        comm.psum(x, "pod")
+    if dev.type == "cuda":
+        ms_c = cuda_time_ms(lambda: COMP.compressed_psum(comm, x, "pod", resid), 5)
+        ms_p = cuda_time_ms(lambda: comm.psum(x, "pod"), 5)
+    else:  # the dry run on the CPU
+        ms_c = ms_p = None
+    return {"elements": n, "pods": pods, "wire_bytes_a_rank": wire,
+            "float32_bytes_a_rank": 4 * n, "ms": ms_c, "plain_float32_psum_ms": ms_p,
+            "backend": comm.backend}
+
+
+def resumed_chain(step, save, restore, fresh) -> list[str]:
+    """``RESUME_ITERS`` iterations, a save, a restore and ``RESUME_ITERS``
+    more, against ``2 * RESUME_ITERS`` uninterrupted from the same start:
+    the state fields that differ. ``fresh()`` gives the start, ``step``
+    an iteration, ``save``/``restore`` the checkpoint's round trip."""
+    whole = fresh()
+    for _ in range(2 * RESUME_ITERS):
+        whole = step(whole)
+    part = fresh()
+    for _ in range(RESUME_ITERS):
+        part = step(part)
+    save(part)
+    part = restore()
+    for _ in range(RESUME_ITERS):
+        part = step(part)
+    differ = same_fields(hdp_state_fields(part), hdp_state_fields(whole))
+    if getattr(whole, "gen", None) is not None and not torch.equal(
+            part.gen.get_state(), whole.gen.get_state()):
+        differ.append("gen")
+    return differ + ([] if part.it == whole.it == 2 * RESUME_ITERS else ["it"])
+
+
+def sharded_world1(work: str) -> None:
+    """Phase 16 (a)-(c) in a child process with torchrun's environment at
+    world size 1 over NCCL; writes ``work/world1.json``."""
+    from repro_torch.core.collectives import Collectives as Comm
+    from repro_torch.data.corpus import shard_balanced
+
+    work = Path(work)
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=MOE_TRAIN_LAYERS)
+    rec = {}
+    # (a) train_lm under torchrun at world 1
+    zero_lm_launches()
+    _, hist, summary = T.train_lm(T.build_parser().parse_args(lm_argv(SHARDED_LM_STEPS)), cfg)
+    rec["lm"] = {"history": hist, "summary": summary,
+                 "launches_by_route": dict(FA.flash_attention.launches_by_route)}
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    MESH.init_distributed("nccl", dev, rank=0, world_size=1,
+                          init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        comm = Comm(MESH.Grid((1, 1, 1), MESH.AXES_3D, 0), "nccl", dev,
+                    axis_sets=[("pod",)])
+        # (b) the sharded sampler's checkpoint round trip at world 1
+        corpus, hcfg = T.hdp_corpus_config(T.build_parser().parse_args(hdp_argv(1)))
+        corpus = shard_balanced(corpus, 1)
+        sh = SH.ShardedHDP(comm, hcfg)
+        tokens = torch.from_numpy(corpus.tokens).to(dev)
+        mask = torch.from_numpy(corpus.mask).to(dev)
+        ck = str(work / "hdp_sharded")
+        rec["hdp_differ"] = resumed_chain(
+            lambda st: sh.iteration(st, tokens, mask), lambda st: sh.save(ck, st),
+            lambda: sh.restore(ck, tokens.shape[1], doc_ranks=1),
+            lambda: sh.init_state(0, tokens, mask))
+        shutil.rmtree(ck, ignore_errors=True)
+        # (c) compressed_psum over NCCL at world 1
+        rec["compression"] = check_compressed_psum(comm, COMP_ELEMENTS, "16 (c)")
+    finally:
+        torch.distributed.destroy_process_group()
+    (work / "world1.json").write_text(json.dumps(rec))
+
+
+def sharded_lm_phase(dev, phase14_losses: list) -> dict:
+    """Phase 16: the sharded LM trainer at world 1, the sampler's --ckpt
+    without --stream, and compression over NCCL (see the docstring)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_phase16_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    try:
+        run_children(work, "world1", [f"C.sharded_world1({str(work)!r})"],
+                     dict(env, **torchrun_env(0, 1, free_port())))
+        w1 = json.loads((work / "world1.json").read_text())
+        lm, summary = w1["lm"], w1["lm"]["summary"]
+        losses = [h["loss"] for h in lm["history"]]
+        check(summary["backend"] == "nccl" and summary["ranks"] == 1,
+              f"16 (a): ran {summary['ranks']} rank(s) on {summary['backend']}")
+        check(losses == phase14_losses[:SHARDED_LM_STEPS],
+              f"16 (a): losses {losses} differ from phase 14's one-process "
+              f"{phase14_losses[:SHARDED_LM_STEPS]}")
+        want = 2 * MOE_TRAIN_LAYERS * SHARDED_LM_STEPS
+        check(lm["launches_by_route"] == {"tensor_cores": want, "cuda_cores": 0},
+              f"16 (a): flash launches {lm['launches_by_route']}, expected {want}")
+        secs = [h["sec"] for h in lm["history"][1:]]
+        ms_step = 1e3 * float(np.median(secs))
+        print(f"[16] (a) launch/train.py train_lm under torchrun's environment, world "
+              f"size 1, NCCL, deepseek-moe-16b depth {MOE_TRAIN_LAYERS}, B={TRAIN_B} "
+              f"S={TRAIN_S}, {SHARDED_LM_STEPS} steps: losses {losses}, bitwise phase "
+              f"14's one-process run; flash launches {lm['launches_by_route']}; "
+              f"{summary['tokens_per_s']:.1f} tok/s, {ms_step:.1f} ms a step (median "
+              f"of steps 2-{SHARDED_LM_STEPS}), peak {summary['peak_mem_gib']:.3f} GiB",
+              flush=True)
+        check(not w1["hdp_differ"],
+              f"16 (b): sharded resume at world 1 differs in {w1['hdp_differ']}")
+        # (b) the one-process sampler's checkpoint round trip
+        _, hcfg, tokens, mask, _ = T.prepare_hdp(T.build_parser().parse_args(hdp_argv(1)))
+        ck = str(work / "hdp")
+
+        def fresh():
+            return H.init_state(H.make_generator(0, dev), tokens, mask, hcfg)
+
+        differ = resumed_chain(lambda st: H.gibbs_iteration(st, tokens, mask, hcfg),
+                               lambda st: T.save_hdp(ck, st),
+                               lambda: T.restore_hdp(ck, fresh()), fresh)
+        check(not differ, f"16 (b): one-process resume differs in {differ}")
+        print(f"[16] (b) the sampler's --ckpt round trip (launch/train.py's save_hdp "
+              f"and restore_hdp; ShardedHDP.save and restore at world size 1 over "
+              f"NCCL in the child) on phase 3's corpus (PubMed 0.01, K=1000, W=256): "
+              f"{RESUME_ITERS} + {RESUME_ITERS} iterations bitwise {2 * RESUME_ITERS} "
+              f"in one run (z, n, phi, varphi, psi, l; in one process the generator "
+              f"too)", flush=True)
+        comp = w1["compression"]
+        print(f"[16] (c) compressed_psum at world 1 over NCCL, {comp['elements']:,} "
+              f"float32: NCCL took the int64 lanes and the MAX; {comp['wire_bytes_a_rank']:,} "
+              f"wire bytes a rank (float32: {comp['float32_bytes_a_rank']:,}); "
+              f"{comp['ms']:.3f} ms (plain float32 psum {comp['plain_float32_psum_ms']:.3f} "
+              f"ms; one rank: the reductions move nothing)", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[16] phase 16 took {phase_s:.1f} s", flush=True)
+    return {"launches_by_route": lm["launches_by_route"], "losses": losses,
+            "tokens_per_s": summary["tokens_per_s"], "ms_per_step": ms_step,
+            "peak_mem_gib": summary["peak_mem_gib"],
+            "bytes_by_collective": summary["bytes_by_collective"],
+            "compression_world1": comp, "seconds": phase_s}
+
+
+# ---- the four-card run (not part of main: the script needs one card) ------------------
+
+def four_card_rank(work: str, rank: int, spec: dict) -> None:
+    """One rank of ``four_cards``: the runs of the docstring there, in
+    order, on ``cuda:{rank}`` (or the CPU over gloo for a dry run).
+    Writes ``work/rank{rank}.json``."""
+    from repro_torch.train import sharding as SHD
+
+    work = Path(work)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = spec["device"] == "cpu"
+    dev = torch.device("cpu") if cpu else torch.device("cuda", rank)
+    backend = "gloo" if cpu else "nccl"
+    world = spec["world"]
+    full = get_config("deepseek-moe-16b", smoke=cpu)
+    extra = ["--device", "cpu"] if cpu else []
+    rec = {}
+
+    def env_for(port):
+        os.environ.update(torchrun_env(rank, world, port))
+
+    def lm_run(name, layers, steps, *more):
+        env_for(spec["ports"][name])
+        cfg = dataclasses.replace(full, num_layers=layers)
+        if not cpu:
+            torch.cuda.empty_cache()
+        zero_lm_launches()
+        state, hist, s = T.train_lm(T.build_parser().parse_args(
+            lm_argv(steps, *extra, *more)), cfg)
+        rec[name] = {"history": hist, "summary": s, "layers": layers,
+                     "flash_launches_by_route": dict(FA.flash_attention.launches_by_route)}
+        return state
+
+    lm_run("depth", spec["depth"], spec["steps"])
+    lm_run("full", full.num_layers, spec["steps"])
+    # a save on (2, 2) at logical shape, restored on (4, 1)
+    ck = str(work / "ckpt")
+    t0 = time.perf_counter()
+    saved = lm_run("ckpt", spec["ckpt_layers"], 1, "--ckpt", ck, "--ckpt-every", "1")
+    rec["ckpt"]["train_and_save_s"] = time.perf_counter() - t0
+    grid22 = MESH.Grid((2, 2), MESH.AXES_2D, rank)
+    mine = {g: {k: v.detach().clone() for k, v in getattr(saved, g).items()}
+            for g in ("params", "mu", "nu")}
+    del saved
+    MESH.init_distributed(backend, dev, rank=rank, world_size=world,
+                          init_method=f"file://{work / 'pg_restore'}",
+                          local_rank=0 if cpu else rank, local_world_size=world)
+    try:
+        grid41 = MESH.Grid((4, 1), MESH.AXES_2D, rank)
+        layout = SHD.Layout(dataclasses.replace(full, num_layers=spec["ckpt_layers"]),
+                            SHD.make_comm(grid41, backend, dev))
+        t0 = time.perf_counter()
+        restored = SHD.restore_sharded(ck, layout, dev)
+        rec["ckpt"]["restore_s"] = time.perf_counter() - t0
+        differ = []
+        for g in ("params", "mu", "nu"):
+            for k, shard in getattr(restored, g).items():
+                whole = layout.gather(k, shard.detach(), label=None)
+                own = whole[MESH.shard_slices(whole.shape, SHD.param_specs(
+                    layout.cfg, grid22)[k], grid22)]
+                if not torch.equal(own, mine[g][k]):
+                    differ.append(f"{g}/{k}")
+        rec["ckpt"]["restored_on"] = [4, 1]
+        rec["ckpt"]["differ"] = differ
+        del restored, mine
+        # compressed_psum on (pod, data, model) = (2, 1, 2)
+        comm = Collectives(MESH.Grid((2, 1, 2), MESH.AXES_3D, rank), backend, dev,
+                           axis_sets=[("pod",)])
+        rec["compression"] = check_compressed_psum(comm, spec["comp_elements"],
+                                                   f"four cards rank {rank}")
+    finally:
+        torch.distributed.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def four_cards(device: str = "cuda") -> dict:
+    """deepseek-moe-16b trained sharded on (data, model) = (2, 2), a card a
+    rank over NCCL (run with four cards; ``device="cpu"`` is a dry run of
+    the same code at smoke size on gloo):
+
+      * depth 6, 3 steps, against the same run at world size 1 (a child
+        on card 0): the losses within ``FOUR_CARD_LOSS_REL``;
+      * the full depth, 28 layers, B=4 S=512, 3 steps: ms a step, tok/s,
+        each card's peak memory (under 80 GB) and finite losses;
+      * a save at logical shape on (2, 2) at depth ``FOUR_CARD_CKPT_LAYERS``,
+        restored on (4, 1): every rank's (2, 2) shards of the parameters and
+        moments bitwise what it held;
+      * ``compressed_psum`` on (2, 1, 2) over NCCL, with its bytes a rank.
+
+    Prints one JSON line and returns it."""
+    t0 = time.perf_counter()
+    cpu = device == "cpu"
+    if not cpu:
+        _build.build_all([*FA.SOURCES, *SSD.SOURCES])
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_four_cards_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    depth = 1 if cpu else MOE_TRAIN_LAYERS
+    try:
+        spec = {"world": 4, "device": device, "depth": depth, "steps": SHARDED_LM_STEPS,
+                "ckpt_layers": 1 if cpu else FOUR_CARD_CKPT_LAYERS,
+                "comp_elements": 4096 if cpu else COMP_ELEMENTS,
+                "ports": {k: free_port() for k in ("depth", "full", "ckpt")}}
+        # the same depth at world size 1, on the first card
+        one = ["--device", "cpu"] if cpu else []
+        call = (f"import json, dataclasses; cfg = dataclasses.replace(C.get_config("
+                f"'deepseek-moe-16b', smoke={cpu}), num_layers={depth}); "
+                f"_, h, s = C.T.train_lm(C.T.build_parser().parse_args("
+                f"C.lm_argv({SHARDED_LM_STEPS}, *{one!r})), cfg); "
+                f"open({str(work / 'world1.json')!r}, 'w').write(json.dumps(s))")
+        run_children(work, "world1", [call], dict(env, **torchrun_env(0, 1, free_port())))
+        w1 = json.loads((work / "world1.json").read_text())
+        (work / "spec.json").write_text(json.dumps(spec))
+        run_children(work, "ranks", [
+            f"C.four_card_rank({str(work)!r}, {r}, __import__('json').loads(open("
+            f"{str(work / 'spec.json')!r}).read()))" for r in range(4)], env)
+        recs = [json.loads((work / f"rank{r}.json").read_text()) for r in range(4)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lead = recs[0]
+    full_layers = lead["full"]["layers"]
+    one_losses = [h["loss"] for h in w1["history"]]
+    four_losses = [h["loss"] for h in lead["depth"]["history"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(four_losses, one_losses))
+    check(rel <= FOUR_CARD_LOSS_REL, f"four cards: depth {depth} losses {four_losses} "
+          f"against world 1's {one_losses}: {rel}")
+    fs = lead["full"]["summary"]
+    peaks = fs["peak_mem_gib_by_rank"]
+    check(all(np.isfinite(h["loss"]) and h["skipped"] == 0 for h in lead["full"]["history"]),
+          f"four cards: full depth losses {lead['full']['history']}")
+    check(cpu or max(peaks) * 2**30 < 80e9, f"four cards: peak memory {peaks} GiB")
+    want = {"tensor_cores": 0 if cpu else 2 * full_layers * SHARDED_LM_STEPS,
+            "cuda_cores": 0}
+    got = [r["full"]["flash_launches_by_route"] for r in recs]
+    check(cpu or all(g == want for g in got),
+          f"four cards: full depth flash launches by rank {got}, expected {want}")
+    differ = sorted({d for r in recs for d in r["ckpt"]["differ"]})
+    check(not differ, f"four cards: restored on (4, 1), shards differ: {differ[:5]}")
+    secs = [h["sec"] for h in lead["full"]["history"][1:]]
+    depth_secs = [h["sec"] for h in lead["depth"]["history"][1:]]
+    out = {
+        "card": nvidia_smi() if not cpu else "cpu",
+        "depth": {"layers": depth, "losses": four_losses, "world1_losses": one_losses,
+                  "max_rel": rel, "ms_per_step": 1e3 * float(np.median(depth_secs)),
+                  "world1_ms_per_step": 1e3 * float(np.median(
+                      [h["sec"] for h in w1["history"][1:]])),
+                  "summary": {k: lead["depth"]["summary"][k] for k in (
+                      "tokens_per_s", "peak_mem_gib_by_rank", "grid",
+                      "bytes_by_collective")}},
+        "full": {"layers": lead["full"]["layers"],
+                 "losses": [h["loss"] for h in lead["full"]["history"]],
+                 "ms_per_step": 1e3 * float(np.median(secs)), "sec_per_step": secs,
+                 "tokens_per_s": fs["tokens_per_s"], "peak_mem_gib_by_rank": peaks,
+                 "flash_launches_by_route": [r["full"]["flash_launches_by_route"]
+                                             for r in recs],
+                 "grid": fs["grid"], "bytes_by_collective": fs["bytes_by_collective"]},
+        "ckpt": {"layers": lead["ckpt"]["layers"], "saved_on": [2, 2],
+                 "restored_on": lead["ckpt"]["restored_on"], "bitwise": not differ,
+                 "train_1_step_and_save_s": lead["ckpt"]["train_and_save_s"],
+                 "restore_s": max(r["ckpt"]["restore_s"] for r in recs)},
+        "compression": [r["compression"] for r in recs],
+        "seconds": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def phases_1_to_13(dev) -> dict:
     """Phases 1-13. Returns the object of the kernels line, which holds
     plain numbers only: nothing of these phases stays on the card once
@@ -3796,6 +4197,14 @@ def main() -> int:
         "launches_sharded_by_route": sharded["launches_by_route"],
         "launches_sharded_ranks": sharded["launches_ranks"]})
     out["sharded"] = {k: sharded[k] for k in ("summary", "runs", "seconds")}
+
+    # ---- 16. the sharded LM trainer, --ckpt without --stream, compression ---------
+    sharded_lm = sharded_lm_phase(dev, out["deepseek_moe_train"]["losses"])
+    d128.update({
+        # launch/train.py's train_lm under torchrun at world size 1 (16 (a))
+        "launches_sharded_train": sharded_lm["launches_by_route"]["tensor_cores"],
+        "launches_sharded_train_by_route": sharded_lm["launches_by_route"]})
+    out["sharded_lm"] = {k: v for k, v in sharded_lm.items() if k != "launches_by_route"}
     print(json.dumps(out), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@
 ``Collectives(grid, backend, device)`` makes the process groups once,
 every rank calling ``new_group`` for every group in the same order: one
 group for each line of the axis sets the sampler reduces over, the last
-axis (``model``) and the axes before it; all axes are the default
-group. Every call takes the rank's tensor on ``device`` and returns one
-there.
+axis (``model``) and the axes before it, and for each further axis set
+the caller names (``axis_sets``; the sharded LM trainer names every
+set); all axes are the default group. Every call takes the rank's
+tensor on ``device`` and returns one there.
 
   * ``"nccl"``: every rank on a card of its own; the native calls.
   * ``"gloo"``: CPU tensors, or CUDA tensors of ranks that share one
@@ -37,7 +38,8 @@ class Collectives:
     """The collectives of one rank of ``grid`` on ``backend``, its tensors
     on ``device``."""
 
-    def __init__(self, grid: Grid, backend: str, device: torch.device):
+    def __init__(self, grid: Grid, backend: str, device: torch.device,
+                 axis_sets=()):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}: the port runs {BACKENDS}")
         if backend == "nccl" and device.type != "cuda":
@@ -53,7 +55,8 @@ class Collectives:
         self.sent: dict[str, int] = defaultdict(int)
         self._groups: dict[tuple[str, ...], dist.ProcessGroup | None] = {
             grid.axes: None}
-        for key in (grid.axes[-1:], grid.axes[:-1]):
+        extra = [self._key(a) for a in axis_sets]
+        for key in (grid.axes[-1:], grid.axes[:-1], *extra):
             if not key or key in self._groups:
                 continue
             for ranks in grid.lines(key):
@@ -85,15 +88,22 @@ class Collectives:
         host.copy_(x)
         return host
 
-    def psum(self, x: torch.Tensor, axes, label: str | None = None) -> torch.Tensor:
-        """Sum over ``axes``; every rank of a line gets the sum."""
+    def _all_reduce(self, x: torch.Tensor, axes, label: str | None, op) -> torch.Tensor:
         group, _ = self._group(axes)
         self._count(label, x)
         buf = self._host(x)
         if buf is x:
             buf = x.clone()
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=op, group=group)
         return buf.to(self.device)
+
+    def psum(self, x: torch.Tensor, axes, label: str | None = None) -> torch.Tensor:
+        """Sum over ``axes``; every rank of a line gets the sum."""
+        return self._all_reduce(x, axes, label, dist.ReduceOp.SUM)
+
+    def pmax(self, x: torch.Tensor, axes, label: str | None = None) -> torch.Tensor:
+        """Elementwise maximum over ``axes``; every rank of a line gets it."""
+        return self._all_reduce(x, axes, label, dist.ReduceOp.MAX)
 
     def all_gather(self, x: torch.Tensor, axes, dim: int,
                    label: str | None = None) -> torch.Tensor:

@@ -74,6 +74,7 @@ from repro_torch.device import synchronize
 from repro_torch.kernels.hdp_z import ops as zops
 from repro_torch.kernels.hdp_z.hdp_z import hdp_z_cuda
 from repro_torch.launch.mesh import Grid
+from repro_torch.train import checkpoint as CKPT
 
 
 def resolve_in_kernel(cfg: H.HDPConfig, device: torch.device) -> bool:
@@ -416,6 +417,72 @@ class ShardedHDP:
         z = self.comm.all_gather(state.z, self.grid.axes, 0)
         n = self.comm.all_gather(state.n, MODEL, 1)
         return (z, n) if self.grid.rank == 0 else None
+
+    # -- checkpoints at logical shape ----------------------------------------------
+    def save(self, ckpt_dir: str, state: ShardState, *, keep: int = 3) -> str | None:
+        """Checkpoint the state at step ``state.it`` at logical shape, as
+        the reference's ``CKPT.save`` stores a sharded array: z (D, L) with
+        the documents in rank order, n, phi and varphi (K, V) gathered
+        over ``model``, psi, l, the seed, the iteration and the number of
+        ranks whose document order z follows. Rank 0 writes, a leaf at a
+        time; every rank must call it. Returns the path on rank 0."""
+        comm, everyone = self.comm, self.grid.axes
+
+        def items():
+            yield "z", comm.all_gather(state.z, everyone, 0)
+            for f in ("n", "phi", "varphi"):
+                yield f, comm.all_gather(getattr(state, f), MODEL, 1)
+            yield "psi", state.psi
+            yield "l", state.l
+            yield "seed", np.int64(state.seed)
+            yield "it", np.int32(state.it)
+            yield "ranks", np.int32(self.grid.world_size)
+
+        path = None
+        if self.grid.rank == 0:
+            path = CKPT.save_items(ckpt_dir, state.it, items(), keep=keep)
+        else:
+            for _ in items():
+                pass
+        if self.grid.world_size > 1:
+            torch.distributed.barrier()
+        return path
+
+    def restore(self, ckpt_dir: str, max_len: int, step: int | None = None, *,
+                doc_ranks: int | None = None) -> ShardState | None:
+        """This rank's slices of a ``save`` checkpoint (by default the
+        latest; None when there is none), on any grid whose documents and
+        vocabulary split the stored shapes: rows ``doc_rows`` of z and
+        columns ``vocab_cols`` of n, phi and varphi. z's rows follow the
+        document order of the run that saved it (``ranks`` in the
+        checkpoint); with ``doc_ranks``, the caller's corpus order (the
+        ranks it was ``shard_balanced`` over) must be the same."""
+        if step is None:
+            step = CKPT.latest_step(ckpt_dir)
+            if step is None:
+                return None
+        saved = int(CKPT.load_array(ckpt_dir, step, "ranks"))
+        if doc_ranks is not None and saved != doc_ranks:
+            raise ValueError(f"the checkpoint's documents are ordered for {saved} "
+                             f"ranks (shard_balanced), this run's for {doc_ranks}: "
+                             f"resume on {saved} ranks")
+        shapes = CKPT.stored_shapes(ckpt_dir, step)
+        d, length = shapes["z"]
+        if length != max_len or shapes["n"] != (self.cfg.K, self.cfg.V):
+            raise ValueError(f"checkpoint z {shapes['z']} and n {shapes['n']} "
+                             f"do not match max_len {max_len} and (K, V) "
+                             f"({self.cfg.K}, {self.cfg.V})")
+        rows, cols = self.doc_rows(d), self.vocab_cols
+
+        def load(key, index=()):
+            return CKPT.load_slice(ckpt_dir, step, key, index).to(self.device)
+
+        return ShardState(
+            z=load("z", (rows,)), n=load("n", (slice(None), cols)),
+            phi=load("phi", (slice(None), cols)).to(self.phi_dtype),
+            varphi=load("varphi", (slice(None), cols)), psi=load("psi"),
+            l=load("l"), seed=int(CKPT.load_array(ckpt_dir, step, "seed")),
+            it=int(CKPT.load_array(ckpt_dir, step, "it")))
 
     def diagnostics(self, state: ShardState, tokens, mask) -> dict:
         """The training CLI's log line: ``log_marginal_likelihood`` (the ranks'

@@ -1,5 +1,5 @@
-"""The rank grid of the data-parallel HDP sampler (counterpart of the HDP
-part of ``repro/launch/mesh.py``).
+"""The rank grid and the logical-axis sharding rules (counterpart of
+``repro/launch/mesh.py``).
 
 A ``Grid`` lays the ranks of a ``torch.distributed`` world out on named
 axes, ``(data, model)`` or ``(pod, data, model)``, in row-major order:
@@ -9,8 +9,19 @@ a JAX mesh orders its devices. ``host_grid_shape`` gives the shape that
 no process group; ``init_distributed`` starts one, after
 ``check_backend`` has refused a layout the backend cannot run.
 
-The LM's sharding rules (``train_rules``, ``shardings_for_tree``) are not
-ported here.
+The LM half maps logical axes (``models/lm.py::param_axes``,
+``cache_axes``) to grid axes as the reference does: ``train_rules`` and
+``serve_rules`` name the grid axes of each logical axis, ``spec_for``
+turns one array's (shape, axes) into a ``Spec``, skipping a grid axis
+that does not divide the dim (shorter prefixes tried first) or that an
+earlier dim already took (the first dim wins), ``shardings_for_tree``
+does it for a dict of arrays, ``kv_cache_shardings`` and
+``batch_shardings`` for the KV cache and the batch. A ``Spec`` is a
+tuple with one entry a dim: None (replicated), a grid axis, or a tuple
+of grid axes (sharded over their product, the first the major).
+``shard_slices`` gives a rank's index range of each dim. The sharded
+trainer (``train/sharding.py``) places parameters, moments and batches
+by them; ``serve_rules`` and ``kv_cache_shardings`` drive no path yet.
 """
 
 from __future__ import annotations
@@ -23,6 +34,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+Spec = tuple  # one entry a dim: None, a grid axis, or a tuple of axes
 
 AXES_2D = ("data", "model")
 AXES_3D = ("pod", "data", "model")
@@ -167,3 +180,136 @@ def init_distributed(backend: str, device: torch.device, *, rank: int,
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
+
+
+# -- the LM's logical-axis rules ----------------------------------------------------
+
+def batch_axes(grid: Grid) -> tuple[str, ...]:
+    """The axes the batch is split over: ``pod`` and ``data``, where the
+    grid has them."""
+    return tuple(a for a in ("pod", "data") if a in grid.axes)
+
+
+def train_rules(grid: Grid) -> dict[str, tuple[str, ...]]:
+    """Logical axis -> grid axes (a tuple: sharded over their product)."""
+    return {
+        "batch": batch_axes(grid),
+        "vocab": ("model",),
+        "heads": ("model",),
+        "kv_heads": ("model",),
+        "ffn": ("model",),
+        "experts": ("model",),
+        "ssm_inner": ("model",),
+        "ssm_heads": ("model",),
+        "embed": ("data",),      # FSDP within a pod
+        "layers": (),
+        "head_dim": (),
+        "cache_seq": (),
+    }
+
+
+def serve_rules(grid: Grid) -> dict[str, tuple[str, ...]]:
+    r = train_rules(grid)
+    r["cache_seq"] = ("model",)  # flash-decoding style fallback
+    return r
+
+
+def _entry(dim: int, cand: tuple[str, ...], grid: Grid):
+    """The longest prefix of ``cand`` whose product divides ``dim``, as a
+    spec entry (one axis bare), or None."""
+    for cut in range(len(cand), 0, -1):
+        sub = cand[:cut]
+        if dim % grid.size(sub) == 0:
+            return sub if len(sub) > 1 else sub[0]
+    return None
+
+
+def spec_for(shape: Sequence[int], axes: Sequence | None,
+             rules: dict[str, tuple], grid: Grid) -> Spec:
+    """The ``Spec`` of one array, with the reference's divisibility
+    checks. When two logical dims map to overlapping grid axes, the first
+    (leftmost) dim wins and the later dim stays replicated."""
+    if axes is None:
+        return Spec()
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} do not match shape {tuple(shape)}")
+    used: set[str] = set()
+    parts = []
+    for dim, name in zip(shape, axes):
+        entry = None
+        if name is not None:
+            cand = tuple(a for a in rules.get(name, ())
+                         if a in grid.axes and a not in used)
+            if cand:
+                entry = _entry(int(dim), cand, grid)
+                if entry is not None:
+                    used.update(as_axes(entry))
+        parts.append(entry)
+    return Spec(parts)
+
+
+def shardings_for_tree(shapes: dict, axes: dict, rules: dict[str, tuple],
+                       grid: Grid) -> dict:
+    """``{key: Spec}`` from parallel dicts of shapes and axes (nested
+    dicts recurse)."""
+    return {k: (shardings_for_tree(v, axes[k], rules, grid) if isinstance(v, dict)
+                else spec_for(v, axes[k], rules, grid))
+            for k, v in shapes.items()}
+
+
+def kv_cache_shardings(grid: Grid, cfg, cache_shapes: dict,
+                       rules: dict[str, tuple]) -> dict:
+    """The cache rule: kv_heads over ``model`` when they divide it, else
+    the cache's sequence. ``cache_shapes`` is one layer's ``{name:
+    shape}`` (``models/lm.py::cache_axes``)."""
+    from repro_torch.models import lm as LM
+
+    r = dict(rules)
+    if cfg.attn_active and cfg.num_kv_heads % grid.size("model") != 0:
+        r["kv_heads"] = ()
+        r["cache_seq"] = ("model",)
+    else:
+        r["cache_seq"] = ()
+    return shardings_for_tree(cache_shapes, LM.cache_axes(cfg), r, grid)
+
+
+def batch_shardings(grid: Grid, batch_shapes: dict,
+                    rules: dict[str, tuple]) -> dict:
+    """tokens, targets, mask and embeds: the leading dim over the batch
+    axes (the longest prefix that divides it), the rest replicated."""
+    ba = tuple(rules.get("batch", ()))
+
+    def one(shape):
+        lead = _entry(int(shape[0]), ba, grid) if ba else None
+        return Spec((lead,) + (None,) * (len(shape) - 1))
+
+    return {k: one(v) for k, v in batch_shapes.items()}
+
+
+def shard_slices(shape: Sequence[int], spec: Spec, grid: Grid,
+                 rank: int | None = None) -> tuple[slice, ...]:
+    """A rank's index range of each dim under ``spec``: dim i split into
+    ``size(entry)`` equal blocks, the rank taking the block of its index
+    over the entry's axes (the first the major, as a JAX mesh orders
+    them)."""
+    coords = dict(zip(grid.axes, grid.coords(rank)))
+    out = []
+    for i, dim in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        if entry is None:
+            out.append(slice(0, int(dim)))
+            continue
+        names = as_axes(entry)
+        sizes = [grid.size(a) for a in names]
+        n = math.prod(sizes)
+        if dim % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split over {names}")
+        idx = int(np.ravel_multi_index([coords[a] for a in names], sizes))
+        per = int(dim) // n
+        out.append(slice(idx * per, (idx + 1) * per))
+    return tuple(out)
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, grid: Grid) -> tuple[int, ...]:
+    """The shape of every rank's shard under ``spec``."""
+    return tuple(s.stop - s.start for s in shard_slices(shape, spec, grid, 0))

@@ -18,8 +18,9 @@ lanes on several devices, and LM training.
   ... --trace t.json --metrics m.jsonl              # Chrome trace, metrics
 
 Prints one dict per ``--log-every`` iterations, then a JSON summary line.
-Under ``torchrun`` each rank runs ``core/sharded.py::ShardedHDP`` on the
-grid ``launch/mesh.py::host_grid_shape`` gives the world (as the
+Under ``torchrun`` with ``--hdp`` each rank runs
+``core/sharded.py::ShardedHDP`` on the grid
+``launch/mesh.py::host_grid_shape`` gives the world (as the
 reference runs ``ShardedHDP`` on ``make_host_mesh``): gloo with
 ``--device cpu``, NCCL on ``cuda:{LOCAL_RANK}`` otherwise (one card a
 rank; NCCL refuses two ranks on one card, and that raises), and rank 0
@@ -34,12 +35,28 @@ spans as a Chrome trace, ``--metrics`` appends metrics snapshots (JSONL,
 ``launch/monitor.py`` reads them) and turns on the per-iteration health
 gauges.
 
+Without ``--stream``, ``--ckpt DIR`` saves the sampler's whole state
+every ``--ckpt-every`` iterations (the generator's state too; under
+``torchrun`` at logical shape, rank 0 writing) and a rerun resumes from
+the latest checkpoint, printing ``restored HDP state at iteration N``;
+the resumed chain is bitwise the uninterrupted one.
+
 ``--arch`` takes ``--steps`` AdamW steps on the synthetic LM stream
 (``data/lm_data.py``), with both LM kernels on the card in every
 forward and every recompute, and prints one JSON line: the reference's
 keys (arch, steps, first_loss, final_loss, tokens_per_s,
 deadline_breaches, history), the device and the peak device memory.
 A rerun with the same ``--ckpt`` resumes from its latest checkpoint.
+Under ``torchrun`` the ranks train it sharded
+(``train/sharding.py``): parameters and moments placed by the
+reference's ``train_rules`` on ``Grid.for_world``, the global batch of
+``--batch`` sequences split over the batch axes, gloo with ``--device
+cpu`` and NCCL on ``cuda:{LOCAL_RANK}`` otherwise; checkpoints are at
+logical shape and resume on any grid; rank 0 prints the summary, whose
+``tokens_per_s`` counts the global batch, with each rank's peak memory.
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch deepseek-moe-16b --smoke --steps 3 --batch 4 --seq 32 --device cpu
 """
 
 from __future__ import annotations
@@ -70,6 +87,8 @@ from repro_torch.kernels.hdp_z import hdp_z as HZ
 from repro_torch.kernels.ssd import ssd as SSD
 from repro_torch.launch import mesh as MESH
 from repro_torch.models.config import LMConfig
+from repro_torch.train import checkpoint as CKPT
+from repro_torch.train import sharding as SHD
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import Trainer, batch_tensors, make_train_step
 
@@ -82,25 +101,47 @@ def train_lm(args: argparse.Namespace, cfg: LMConfig | None = None):
     runs from a synchronize after the kernels' build and the model's
     init to the last step's end; ``peak_mem_gib`` is the card's peak
     over the same span. Returns the final state, the logged history
-    and the printed summary."""
+    and the printed summary.
+
+    Started by ``torchrun``, it runs ``train_lm_sharded`` instead."""
+    launch = MESH.torchrun_env()
+    if launch is not None:
+        return train_lm_sharded(args, launch, cfg)
     device = resolve_device(args.device)
-    if cfg is None:
-        cfg = get_config(args.arch, smoke=args.smoke)
-    stream = SyntheticLMStream(cfg.vocab_size, args.batch, args.seq,
-                               prefix_len=cfg.prefix_len, d_model=cfg.d_model)
-    opt = AdamWConfig(lr=args.lr, warmup=20)
-    if device.type == "cuda":
-        _build.build_all([*FA.SOURCES, *SSD.SOURCES])
+    cfg, opt = _lm_setup(args, cfg, device)
     trainer = Trainer(cfg, opt, make_train_step(cfg, opt),
                       checkpoint_dir=args.ckpt,
                       checkpoint_every=args.ckpt_every or 50,
                       step_deadline_s=args.deadline, device=device)
+    state, history, summary = _lm_run(args, cfg, device, trainer)
+    print(json.dumps(summary), flush=True)
+    return state, history, summary
+
+
+def _lm_setup(args: argparse.Namespace, cfg: LMConfig | None,
+              device: torch.device):
+    """The run's config (``args.arch``'s unless given) and optimizer; on
+    the card, the LM kernels built."""
+    if cfg is None:
+        cfg = get_config(args.arch, smoke=args.smoke)
+    if device.type == "cuda":
+        _build.build_all([*FA.SOURCES, *SSD.SOURCES])
+    return cfg, AdamWConfig(lr=args.lr, warmup=20)
+
+
+def _lm_run(args: argparse.Namespace, cfg: LMConfig, device: torch.device,
+            trainer, rows=lambda batch: batch):
+    """The trainer's restored or new state, then ``args.steps`` steps on
+    the stream (``rows`` of each global batch), on ``train_lm``'s clock
+    and peak. Returns the state, the history and the summary."""
+    stream = SyntheticLMStream(cfg.vocab_size, args.batch, args.seq,
+                               prefix_len=cfg.prefix_len, d_model=cfg.d_model)
     state = trainer.restore_or_init(args.seed)
     synchronize(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    data = (batch_tensors(b, device)
+    data = (batch_tensors(rows(b), device)
             for b in batches(stream, args.steps, start=state.step))
     state, history = trainer.run(state, data, log_every=args.log_every)
     dt = time.perf_counter() - t0
@@ -114,8 +155,61 @@ def train_lm(args: argparse.Namespace, cfg: LMConfig | None = None):
         "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                          if device.type == "cuda" else None),
     }
-    print(json.dumps(summary), flush=True)
     return state, history, summary
+
+
+def _start_ranks(args: argparse.Namespace, launch: MESH.LaunchEnv):
+    """Bind this rank's device and start the default process group:
+    ``(device, backend)``, gloo on the CPU, NCCL on ``cuda:{LOCAL_RANK}``."""
+    device = resolve_device(args.device)
+    backend = "gloo" if device.type == "cpu" else "nccl"
+    if device.type == "cuda":
+        device = torch.device("cuda", launch.local_rank)
+    MESH.init_distributed(backend, device, rank=launch.rank,
+                          world_size=launch.world_size,
+                          local_rank=launch.local_rank,
+                          local_world_size=launch.local_world_size)
+    return device, backend
+
+
+def train_lm_sharded(args: argparse.Namespace, launch: MESH.LaunchEnv,
+                     cfg: LMConfig | None = None):
+    """One rank of the sharded LM run (the reference's ``train_lm`` on a
+    mesh over every device): ``train_lm`` with the parameters and both
+    moments sharded by ``train_rules`` over ``Grid.for_world``, each rank
+    taking its rows of every global batch. The clock and the peak are
+    ``train_lm``'s, on each rank; rank 0 prints the summary, whose
+    ``tokens_per_s`` counts the global batch, ``peak_mem_gib_by_rank``
+    holds each rank's peak (``peak_mem_gib`` the largest) and
+    ``bytes_by_collective`` this rank's bytes over the steps. At world 1
+    the run is bitwise ``train_lm``'s. Returns what ``train_lm`` returns,
+    on every rank (the state is the rank's shards)."""
+    device, backend = _start_ranks(args, launch)
+    try:
+        grid = MESH.Grid.for_world(launch.world_size, launch.rank)
+        comm = SHD.make_comm(grid, backend, device)
+        cfg, opt = _lm_setup(args, cfg, device)
+        layout = SHD.Layout(cfg, comm)
+        trainer = SHD.ShardedTrainer(
+            cfg, opt, layout, SHD.make_sharded_train_step(opt, layout, args.batch),
+            checkpoint_dir=args.ckpt, checkpoint_every=args.ckpt_every or 50,
+            step_deadline_s=args.deadline)
+        state, history, summary = _lm_run(
+            args, cfg, device, trainer, rows=lambda b: SHD.local_batch(grid, b))
+        peak = summary["peak_mem_gib"]
+        peaks = comm.all_gather(torch.tensor([peak or 0.0], dtype=torch.float64,
+                                             device=device), grid.axes, 0).tolist()
+        summary.update({
+            "peak_mem_gib": max(peaks) if peak is not None else None,
+            "peak_mem_gib_by_rank": peaks if peak is not None else None,
+            "ranks": grid.world_size, "backend": backend,
+            "grid": dict(zip(grid.axes, grid.shape)),
+            "bytes_by_collective": dict(comm.sent)})
+        if grid.rank == 0:
+            print(json.dumps(summary), flush=True)
+        return state, history, summary
+    finally:
+        dist.destroy_process_group()
 
 
 def hdp_corpus_config(args: argparse.Namespace):
@@ -140,6 +234,32 @@ def prepare_hdp(args: argparse.Namespace):
     state = H.init_state(H.make_generator(args.seed, device), tokens, mask, cfg)
     synchronize(device)
     return corpus, cfg, tokens, mask, state
+
+
+def save_hdp(ckpt_dir: str, state: H.HDPState) -> str:
+    """Checkpoint the whole ``HDPState`` at step ``state.it``: the arrays,
+    the iteration and the generator's state."""
+    return CKPT.save(ckpt_dir, state.it, {
+        "z": state.z, "n": state.n, "phi": state.phi, "varphi": state.varphi,
+        "psi": state.psi, "l": state.l, "it": np.int32(state.it),
+        "gen": state.gen.get_state()})
+
+
+def restore_hdp(ckpt_dir: str, like: H.HDPState) -> H.HDPState | None:
+    """The latest checkpoint of ``ckpt_dir`` (None when there is none) as
+    an ``HDPState`` on ``like``'s device, its generator (``like``'s,
+    advanced in place) set to the saved state."""
+    got = CKPT.restore_latest(ckpt_dir, {
+        "z": like.z, "n": like.n, "phi": like.phi, "varphi": like.varphi,
+        "psi": like.psi, "l": like.l, "it": 0, "gen": like.gen.get_state()})
+    if got is None:
+        return None
+    if tuple(got["z"].shape) != tuple(like.z.shape):
+        raise ValueError(f"checkpoint z {tuple(got['z'].shape)} does not match "
+                         f"the corpus {tuple(like.z.shape)}")
+    like.gen.set_state(got["gen"])
+    return H.HDPState(z=got["z"], n=got["n"], phi=got["phi"], varphi=got["varphi"],
+                      psi=got["psi"], l=got["l"], gen=like.gen, it=int(got["it"]))
 
 
 def train_hdp(
@@ -168,6 +288,11 @@ def train_hdp(
     device = tokens.device
     if device.type == "cuda" and cfg.z_impl == "cuda":
         _build.build_all(HZ.SOURCES)
+    if args.ckpt:
+        got = restore_hdp(args.ckpt, state)
+        if got is not None:
+            state = got
+            print(f"restored HDP state at iteration {state.it}", flush=True)
 
     history = []
     dt = 0.0
@@ -187,6 +312,8 @@ def train_hdp(
             print(history[-1], flush=True)
         if on_iteration is not None:
             on_iteration(state, tokens, mask, cfg)
+        if args.ckpt and (i + 1) % (args.ckpt_every or 1) == 0:
+            save_hdp(args.ckpt, state)
     summary = {
         "corpus": args.hdp, "tokens": corpus.num_tokens,
         "iters": args.iters, "sec_per_iter": dt / args.iters,
@@ -211,14 +338,7 @@ def train_hdp_sharded(
     are built before the first iteration, once for all the ranks of a
     host (``kernels/_build.py`` locks each build). Returns what
     ``train_hdp`` returns, on every rank."""
-    device = resolve_device(args.device)
-    backend = "gloo" if device.type == "cpu" else "nccl"
-    if device.type == "cuda":
-        device = torch.device("cuda", launch.local_rank)
-    MESH.init_distributed(backend, device, rank=launch.rank,
-                          world_size=launch.world_size,
-                          local_rank=launch.local_rank,
-                          local_world_size=launch.local_world_size)
+    device, backend = _start_ranks(args, launch)
     try:
         grid = MESH.Grid.for_world(launch.world_size, launch.rank)
         corpus, cfg = hdp_corpus_config(args)
@@ -233,6 +353,12 @@ def train_hdp_sharded(
             _build.build_all(HZ.SOURCES)
         state = sh.init_state(args.seed, tokens, mask)
         lead = grid.rank == 0
+        if args.ckpt:
+            got = sh.restore(args.ckpt, tokens.shape[1], doc_ranks=grid.world_size)
+            if got is not None:
+                state = got
+                if lead:
+                    print(f"restored HDP state at iteration {state.it}", flush=True)
         history = []
         dt = 0.0
         for i in range(args.iters):
@@ -248,6 +374,8 @@ def train_hdp_sharded(
                     print(history[-1], flush=True)
             if on_iteration is not None:
                 on_iteration(sh, state, tokens, mask)
+            if args.ckpt and (i + 1) % (args.ckpt_every or 1) == 0:
+                sh.save(args.ckpt, state)
         summary = {
             "corpus": args.hdp, "tokens": corpus.num_tokens,
             "iters": args.iters, "sec_per_iter": dt / args.iters,
@@ -360,11 +488,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="documents a block (--stream)")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory; a rerun resumes from it "
-                         "(--stream, --arch)")
+                         "(--hdp with or without --stream, and --arch)")
     ap.add_argument("--ckpt-every", type=int, default=None,
-                    help="iterations between boundary checkpoints (--stream; "
-                         "default 1), steps between checkpoints (--arch; "
-                         "default 50)")
+                    help="iterations between checkpoints (--hdp; default 1; "
+                         "with --stream at iteration boundaries), steps "
+                         "between checkpoints (--arch; default 50)")
     ap.add_argument("--ckpt-every-blocks", type=int, default=None,
                     help="blocks between mid-iteration checkpoints (--stream)")
     ap.add_argument("--z-store", default="ram", choices=("ram", "disk"),
@@ -398,9 +526,9 @@ def main(argv: list[str] | None = None):
     args = ap.parse_args(argv)
     if args.devices != 1 and not args.stream:
         ap.error("--devices sets the streamed trainer's sweep lanes: pass --stream")
-    if MESH.torchrun_env() is not None and (args.arch or args.stream):
-        ap.error("under torchrun the ranks run the sharded HDP sampler: pass "
-                 "--hdp without --stream")
+    if MESH.torchrun_env() is not None and args.stream:
+        ap.error("under torchrun the ranks run the sharded HDP sampler or the "
+                 "sharded LM trainer: pass --hdp without --stream, or --arch")
     try:
         resolve_device(args.device)
     except RuntimeError as e:

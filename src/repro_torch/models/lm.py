@@ -58,14 +58,20 @@ class CausalLM(nn.Module):
         """Final hidden states (B, S_total, D) of the full-sequence forward."""
         x, positions = self._inputs(tokens, embeds)
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for blk in self.blocks:
+        for i in range(self.cfg.num_layers):
             if remat:
                 # the block draws no random numbers: no RNG state to keep
-                x = checkpoint(BLK.block_train, blk, self.cfg, x, positions,
+                x = checkpoint(self._block_train, i, x, positions,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = BLK.block_train(blk, self.cfg, x, positions)
+                x = self._block_train(i, x, positions)
         return rmsnorm(self.final_norm, x, self.cfg.norm_eps)
+
+    def _block_train(self, i: int, x: torch.Tensor, positions: torch.Tensor):
+        """Block ``i``'s forward; recomputed whole in the backward pass
+        under remat (the sharded trainer gathers the block's parameters
+        here)."""
+        return BLK.block_train(self.blocks[i], self.cfg, x, positions)
 
     def prefill(self, tokens: torch.Tensor, cache_len: int,
                 embeds: torch.Tensor | None = None):
@@ -101,6 +107,30 @@ class CausalLM(nn.Module):
 
 
 # -- training loss ---------------------------------------------------------------
+
+def lm_loss_terms(model, tokens, targets, mask, embeds=None):
+    """``lm_loss``'s numerator and denominator, both 0-d float32: the
+    summed cross-entropy over the positions ``mask`` keeps, and their
+    count. The sharded trainer sums both over the ranks that split the
+    batch before it divides."""
+    h = _GradDtypeBarrier.apply(model.forward_hidden(tokens, embeds))
+    h = h[:, model.cfg.prefix_len:]  # loss on token positions only
+    b, s, _ = h.shape
+    chunk = _largest_divisor_leq(s, model.cfg.loss_chunk)
+    mf = mask.float()
+    losses, counts = [], []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        args = (model.embed, h[:, sl], targets[:, sl], mf[:, sl])
+        if torch.is_grad_enabled():
+            loss, count = checkpoint(_chunk_loss, *args, use_reentrant=False,
+                                     preserve_rng_state=False)
+        else:
+            loss, count = _chunk_loss(*args)
+        losses.append(loss)
+        counts.append(count)
+    return torch.stack(losses).sum(), torch.stack(counts).sum()
+
 
 def _largest_divisor_leq(s: int, target: int) -> int:
     for c in range(min(target, s), 0, -1):
@@ -139,21 +169,118 @@ def lm_loss(model: CausalLM, tokens: torch.Tensor, targets: torch.Tensor,
     tokens, targets, mask: (B, S); ``embeds`` (B, P, D), the prefix, whose
     positions take no loss. The vocabulary is reduced in
     ``_largest_divisor_leq(S, cfg.loss_chunk)``-position chunks, each
-    recomputed in the backward pass, not stored."""
-    h = _GradDtypeBarrier.apply(model.forward_hidden(tokens, embeds))
-    h = h[:, model.cfg.prefix_len:]  # loss on token positions only
-    b, s, _ = h.shape
-    chunk = _largest_divisor_leq(s, model.cfg.loss_chunk)
-    mf = mask.float()
-    losses, counts = [], []
-    for c0 in range(0, s, chunk):
-        sl = slice(c0, c0 + chunk)
-        args = (model.embed, h[:, sl], targets[:, sl], mf[:, sl])
-        if torch.is_grad_enabled():
-            loss, count = checkpoint(_chunk_loss, *args, use_reentrant=False,
-                                     preserve_rng_state=False)
-        else:
-            loss, count = _chunk_loss(*args)
-        losses.append(loss)
-        counts.append(count)
-    return torch.stack(losses).sum() / torch.clamp_min(torch.stack(counts).sum(), 1.0)
+    recomputed in the backward pass, not stored. ``model`` may be any
+    object with ``cfg``, ``embed`` and ``forward_hidden`` (the sharded
+    trainer's ``train/sharding.py::ShardedLM``)."""
+    total, count = lm_loss_terms(model, tokens, targets, mask, embeds)
+    return total / torch.clamp_min(count, 1.0)
+
+
+# -- logical axes (counterparts of ``abstract_axes`` and ``cache_axes``) ---------
+
+# each parameter's logical axes, by its name within the model or a block
+_LEAF_AXES = {
+    "embed.table": ("vocab", "embed"),
+    "final_norm.scale": ("embed",),
+    "norm1.scale": ("embed",),
+    "norm2.scale": ("embed",),
+    "attn.wq": ("embed", "heads", "head_dim"),
+    "attn.wk": ("embed", "kv_heads", "head_dim"),
+    "attn.wv": ("embed", "kv_heads", "head_dim"),
+    "attn.wo": ("heads", "head_dim", "embed"),
+    "attn.bq": ("heads", "head_dim"),
+    "attn.bk": ("kv_heads", "head_dim"),
+    "attn.bv": ("kv_heads", "head_dim"),
+    "ssm.in_proj": ("embed", "ssm_inner"),
+    "ssm.conv_w": (None, "ssm_inner"),
+    "ssm.conv_b": ("ssm_inner",),
+    "ssm.a_log": ("ssm_heads",),
+    "ssm.dt_bias": ("ssm_heads",),
+    "ssm.d_skip": ("ssm_heads",),
+    "ssm.out_proj": ("ssm_inner", "embed"),
+    "ssm.norm.scale": ("embed",),
+    "moe.router": ("embed", "experts"),
+    "moe.wi": ("experts", "embed", "ffn"),
+    "moe.wo": ("experts", "ffn", "embed"),
+    "moe.shared.wi": ("embed", "ffn"),
+    "moe.shared.wo": ("ffn", "embed"),
+    "mlp.wi": ("embed", "ffn"),
+    "mlp.wo": ("ffn", "embed"),
+}
+
+
+def block_shapes(cfg: LMConfig) -> dict[str, tuple[int, ...]]:
+    """One block's parameter shapes by name within the block, in the
+    order ``Block`` registers them, from the config alone."""
+    from repro_torch.models.mlp import GATED
+    from repro_torch.models.ssm import CONV_K, ssm_dims
+
+    d = cfg.d_model
+    out = {"norm1.scale": (d,)}
+    if cfg.attn_active:
+        hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        out.update({"attn.wq": (d, hq, dh), "attn.wk": (d, hkv, dh),
+                    "attn.wv": (d, hkv, dh), "attn.wo": (hq, dh, d)})
+        if cfg.qkv_bias:
+            out.update({"attn.bq": (hq, dh), "attn.bk": (hkv, dh),
+                        "attn.bv": (hkv, dh)})
+    if cfg.ssm_active:
+        d_inner, heads, conv_dim = ssm_dims(cfg)
+        out.update({
+            "ssm.in_proj": (d, 2 * d_inner + 2 * cfg.ssm_state + heads),
+            "ssm.conv_w": (CONV_K, conv_dim), "ssm.conv_b": (conv_dim,),
+            "ssm.a_log": (heads,), "ssm.dt_bias": (heads,), "ssm.d_skip": (heads,),
+            "ssm.out_proj": (d_inner, d), "ssm.norm.scale": (d_inner,)})
+
+    def mlp_shapes(prefix, d_ff):
+        width = 2 * d_ff if cfg.mlp_type in GATED else d_ff
+        return {f"{prefix}.wi": (d, width), f"{prefix}.wo": (d_ff, d)}
+
+    if cfg.block_type == "moe":
+        e, f = cfg.num_experts, cfg.expert_d_ff
+        width = 2 * f if cfg.mlp_type in GATED else f
+        out.update({"norm2.scale": (d,), "moe.router": (d, e),
+                    "moe.wi": (e, d, width), "moe.wo": (e, f, d)})
+        if cfg.shared_experts:
+            out.update(mlp_shapes("moe.shared", cfg.shared_experts * f))
+    elif cfg.mlp_type != "none" and cfg.d_ff > 0:
+        out["norm2.scale"] = (d,)
+        out.update(mlp_shapes("mlp", cfg.d_ff))
+    return out
+
+
+def param_shapes(cfg: LMConfig) -> dict[str, tuple[int, ...]]:
+    """Every parameter's shape under the port's names (``blocks.{i}.*``),
+    in ``named_parameters`` order, without allocating the model."""
+    out = {"embed.table": (cfg.vocab_size, cfg.d_model)}
+    blk = block_shapes(cfg)
+    for i in range(cfg.num_layers):
+        out.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
+    out["final_norm.scale"] = (cfg.d_model,)
+    return out
+
+
+def _leaf_name(name: str) -> str:
+    if name.startswith("blocks."):
+        return name.split(".", 2)[2]
+    return name
+
+
+def param_axes(cfg: LMConfig) -> dict[str, tuple]:
+    """Every parameter's logical axes under the port's names: the
+    reference's ``abstract_axes`` with the leading ``layers`` axis taken
+    off each layer's leaves."""
+    return {k: _LEAF_AXES[_leaf_name(k)] for k in param_shapes(cfg)}
+
+
+def cache_axes(cfg: LMConfig) -> dict[str, tuple]:
+    """One layer's cache's logical axes (the reference's, without its
+    leading ``layers`` axis)."""
+    ax = {}
+    if cfg.attn_active:
+        ax["k"] = ("batch", "cache_seq", "kv_heads", "head_dim")
+        ax["v"] = ("batch", "cache_seq", "kv_heads", "head_dim")
+    if cfg.ssm_active:
+        ax["conv"] = ("batch", None, "ssm_inner")
+        ax["ssm"] = ("batch", "ssm_heads", None, None)
+    return ax

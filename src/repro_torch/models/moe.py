@@ -25,11 +25,23 @@ host: no boolean-mask indexing, ``nonzero`` or ``.item()``.
 ``routing`` and ``dispatch`` are separate so that a test can hand the
 dispatch the reference's own expert choices: one float32 ulp in the
 router's logits may swap an expert.
+
+Split over ranks (``global_batch``, which the sharded trainer enters),
+the capacity and every (token, slot)'s place are those of the global
+batch, as the reference computes them over all B*S tokens of a sharded
+batch: C from the global T, and each place the rank's own exclusive
+cumsum plus the per-expert counts of the rows before the rank's (their
+all-gather is the caller's ``before_counts``). So every rank drops the
+tokens the one-device step drops. The rank's expert buffers hold only
+its own kept slots, min(C, T_rank) of them an expert, at their place within the
+rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Callable
 
 import torch
 
@@ -37,6 +49,24 @@ from repro_torch.models.mlp import GATED, activation, init_mlp, mlp
 from repro_torch.models.module import Params, dense_init
 
 DISPATCHES = ("scatter", "dense")
+
+# (ranks the batch is split over, before_counts), set by ``global_batch``
+_GLOBAL_BATCH: tuple[int, Callable[[torch.Tensor], torch.Tensor]] | None = None
+
+
+@contextlib.contextmanager
+def global_batch(ranks: int, before_counts: Callable[[torch.Tensor], torch.Tensor]):
+    """Within it, ``dispatch`` takes capacity and places over the global
+    batch of ``ranks`` equal row blocks, of which the caller holds one:
+    ``before_counts(counts)`` maps this rank's per-expert (E,) int32
+    counts to the sums of those of the ranks before it (the caller's
+    collective, which every rank must reach in the same order)."""
+    global _GLOBAL_BATCH
+    prev, _GLOBAL_BATCH = _GLOBAL_BATCH, (int(ranks), before_counts)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH = prev
 
 
 def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype) -> Params:
@@ -96,6 +126,26 @@ def positions(idx: torch.Tensor, num_experts: int, cap: int):
     return flat_e, onehot, pos, pos < cap
 
 
+def places(idx: torch.Tensor, cfg, tokens: int):
+    """Where each (token, slot) goes: ``(flat_e, onehot, pos, keep,
+    pos_buf, cap_buf)``. ``pos`` is its place in its expert over the
+    whole batch, ``keep`` = pos < C, and ``pos_buf`` its row in this
+    rank's (E, cap_buf, D) buffers. On one device pos_buf is pos and
+    cap_buf is C; within ``global_batch``, see the module docstring."""
+    e = cfg.num_experts
+    if _GLOBAL_BATCH is None or _GLOBAL_BATCH[0] == 1:
+        cap = capacity(cfg, tokens)
+        flat_e, onehot, pos, keep = positions(idx, e, cap)
+        return flat_e, onehot, pos, keep, pos, cap
+    ranks, before_counts = _GLOBAL_BATCH
+    cap = capacity(cfg, tokens * ranks)
+    flat_e, onehot, pos_buf, _ = positions(idx, e, cap)
+    before = before_counts(onehot.sum(dim=0, dtype=torch.int32))
+    pos = pos_buf + torch.gather(before, 0, flat_e.long())
+    # a kept slot's rank-local place is below C and below the rank's T
+    return flat_e, onehot, pos, pos < cap, pos_buf, min(cap, tokens)
+
+
 def expert_ffn(p: Params, cfg, expert_in: torch.Tensor) -> torch.Tensor:
     """expert_in: (E, C, D) -> (E, C, D), in expert_in's dtype: each
     expert's MLP as one batched product each way."""
@@ -112,9 +162,8 @@ def dispatch(p: Params, cfg, x: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"unknown moe dispatch {mode!r}; one of {DISPATCHES}")
     b, s, d = x.shape
     t, k, e = b * s, cfg.top_k, cfg.num_experts
-    cap = capacity(cfg, t)
     xt = x.reshape(t, d)
-    flat_e, onehot, pos, keep = positions(idx, e, cap)
+    flat_e, onehot, _, keep, pos, cap = places(idx, cfg, t)
     gates_flat = gates.reshape(t * k) * keep.float()
     src = xt.repeat_interleave(k, dim=0) if k > 1 else xt
 

@@ -12,6 +12,13 @@ numpy array on the host (bfloat16 tensors as their 16 bits, dtype
 and gives each leaf its template's kind: a tensor (with the template's
 dtype and device) or a numpy array.
 
+Arrays are stored at their logical (global) shape. A sharded state is
+saved leaf by leaf (``save_items`` takes the leaves from an iterator,
+so the saver gathers one leaf at a time), and ``load_slice`` reads a
+rank's slice of one stored array without reading the rest, so a
+checkpoint restores onto any grid (``train/sharding.py``,
+``train/elastic.py``).
+
 A save writes ``.tmp-step_<N>`` and renames it only when complete, so a
 crash never corrupts the latest checkpoint; ``keep`` bounds how many are
 retained. A payload may pin files stored beside it instead of embedding
@@ -26,7 +33,7 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Optional
+from typing import Any, Iterable, Optional
 
 import numpy as np
 import torch
@@ -59,13 +66,20 @@ def _path(ckpt_dir: str, step: int, key: str) -> str:
 
 
 def save(ckpt_dir: str, step: int, state: dict, *, keep: int = 3) -> str:
+    return save_items(ckpt_dir, step, _flatten(state).items(), keep=keep)
+
+
+def save_items(ckpt_dir: str, step: int, items: Iterable[tuple[str, Any]], *,
+               keep: int = 3) -> str:
+    """``save`` of flat ``(key, leaf)`` pairs, each written as it comes
+    and dropped before the next is asked for."""
     final = os.path.join(ckpt_dir, f"step_{step}")
     tmp = os.path.join(ckpt_dir, f".tmp-step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {}
-    for key, leaf in _flatten(state).items():
+    for key, leaf in items:
         arr, dtype = _to_numpy(leaf)
         np.save(os.path.join(tmp, key.replace("/", "__") + ".npy"), arr)
         manifest[key] = {"shape": list(arr.shape), "dtype": dtype}
@@ -110,9 +124,23 @@ def manifest_keys(ckpt_dir: str, step: int) -> list[str]:
     return list(_manifest(ckpt_dir, step).keys())
 
 
+def stored_shapes(ckpt_dir: str, step: int) -> dict[str, tuple[int, ...]]:
+    """Every stored array's logical shape, from the manifest alone."""
+    return {k: tuple(m["shape"]) for k, m in _manifest(ckpt_dir, step).items()}
+
+
 def load_array(ckpt_dir: str, step: int, key: str) -> np.ndarray:
     """One stored array by flat key, as saved (bfloat16 as its bits)."""
     return np.load(_path(ckpt_dir, step, key))
+
+
+def load_slice(ckpt_dir: str, step: int, key: str,
+               index: tuple[slice, ...]) -> torch.Tensor:
+    """``index`` of one stored array as a CPU tensor of its dtype, read
+    through a memory map (only the slice's pages are read)."""
+    meta = _manifest(ckpt_dir, step)[key]
+    raw = np.load(_path(ckpt_dir, step, key), mmap_mode="r")
+    return _decode(meta, raw[index] if raw.ndim else raw)
 
 
 def _decode(meta: dict, raw: np.ndarray) -> torch.Tensor:

@@ -54,13 +54,18 @@ def lr_schedule(cfg: AdamWConfig, step: int) -> np.float32:
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
                  mu: dict, nu: dict, params: Mapping[str, torch.Tensor],
-                 step: int, ok: torch.Tensor | None = None) -> torch.Tensor:
+                 step: int, ok: torch.Tensor | None = None,
+                 gnorm: torch.Tensor | None = None) -> torch.Tensor:
     """One AdamW step at ``step`` (0-based): updates ``mu``, ``nu`` and
     ``params`` in place and returns the gradients' global norm. The
     parameters update in float32 and are cast back to their dtype. Where
     the 0-d bool ``ok`` is false the parameters keep their values; the
-    moments update all the same, as the reference's do."""
-    gnorm = global_norm(grads)
+    moments update all the same, as the reference's do. ``gnorm`` is the
+    norm that clips, by default ``global_norm(grads)``; the sharded
+    trainer passes the norm over every rank's shards, and the update,
+    elementwise, then gives each shard its slice of the full update."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     # float32 values as Python floats (exact), which torch applies as such
     t = np.float32(step + 1)

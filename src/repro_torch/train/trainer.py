@@ -140,5 +140,9 @@ class Trainer:
                     "grad_norm": float(metrics["grad_norm"]),
                     "skipped": int(metrics["skipped"]), "sec": dt})
             if self.checkpoint_dir and state.step % self.checkpoint_every == 0:
-                CKPT.save(self.checkpoint_dir, state.step, state.payload())
+                self.save(state)
         return state, history
+
+    def save(self, state: TrainState) -> None:
+        """Checkpoint ``state`` at its step."""
+        CKPT.save(self.checkpoint_dir, state.step, state.payload())

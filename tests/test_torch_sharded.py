@@ -175,8 +175,10 @@ def one_spawn_at_a_time(tmp_path_factory):
         yield
 
 
-def spawn(tmp_path, tmp_path_factory, name: str, world: int, spec: dict) -> list:
-    """Run ``world`` ranks of this file on ``spec``; each rank's findings."""
+def spawn(tmp_path, tmp_path_factory, name: str, world: int, spec: dict,
+          script: str = __file__) -> list:
+    """Run ``world`` ranks of ``script`` (this file unless another test
+    file's ranks) on ``spec``; each rank's findings."""
     spec_path = tmp_path / f"{name}.json"
     spec_path.write_text(json.dumps(spec))
     with one_spawn_at_a_time(tmp_path_factory):
@@ -186,7 +188,7 @@ def spawn(tmp_path, tmp_path_factory, name: str, world: int, spec: dict) -> list
                 log = open(tmp_path / f"{name}.rank{r}.log", "w")
                 logs.append(log)
                 procs.append(subprocess.Popen(
-                    [*NICE, sys.executable, __file__, str(spec_path), name, str(r),
+                    [*NICE, sys.executable, script, str(spec_path), name, str(r),
                      str(world)], env=child_env(), stdout=log,
                     stderr=subprocess.STDOUT, cwd=ROOT))
             deadline = time.monotonic() + SPAWN_TIMEOUT_S
