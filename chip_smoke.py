@@ -202,8 +202,10 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      conditioned loss below the unconditioned one.
  13. deepseek-moe-16b and the last reference configs: (a) flash bf16 on
      the tensor cores at D=128 at the prefill shapes (B=4, S=512) of
-     deepseek (16/16 heads), llama4-scout (40/8), chatglm3 (32/2) and
-     qwen1.5 (40/40), and float32 on the CUDA cores at deepseek's, against
+     deepseek (16/16 heads), llama4-scout (40/8), chatglm3 (32/2),
+     qwen1.5 (40/40) and starcoder2-3b (24/2), and at D=64 at
+     musicgen-medium's (B=4, S=768: a 256-position prefix and 512
+     tokens, 24/24), and float32 on the CUDA cores at deepseek's, against
      the plain version (3e-2, 2e-5; SDPA's error printed beside); the
      CUDA-core SSD at mamba2-780m's shape (B=4, S=512, H=48, P=64,
      N=128, chunk 128, 199,168 B of shared memory a block), B and C
@@ -230,9 +232,17 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      ``MOE_DISPATCH_ATOL``; no moe call synchronizing with the host
      (``torch.cuda.set_sync_debug_mode``); (d) ``launch/serve.py`` on
      llama4-scout-17b-a16e at depth 8 of 48, mamba2-780m whole (every SSD
-     launch on the CUDA cores, no flash launch), chatglm3-6b whole and
-     qwen1.5-32b at depth 16 of 64, the same requests: launches by route,
-     tok/s and peak memory of each.
+     launch on the CUDA cores, no flash launch), chatglm3-6b whole,
+     qwen1.5-32b at depth 16 of 64, starcoder2-3b whole (gelu, qkv
+     biases, GQA 12:1) and musicgen-medium whole (256 prefix positions,
+     its cache prefix + prompt + gen), the same requests: launches by
+     route, tok/s and peak memory of each, every logit finite and every
+     token in the vocabulary; (e) starcoder2-3b and musicgen-medium
+     trained whole through ``launch/train.py --arch ... --steps 3
+     --batch 4 --seq 512`` on the synthetic stream: finite losses, none
+     skipped, every step launching flash twice a layer (forward and
+     recompute, all tensor-core) and calling the plain attention once a
+     layer (the backward's VJPs); ms a step, tok/s and peak memory.
  14. deepseek-moe-16b training at its published width and depth 6 of 28
      (3,736,889,344 parameters; 12 B each of bf16 parameters and gradients
      and float32 moments make 41.8 GiB, the full depth 200 GB), seed 0, on
@@ -302,7 +312,19 @@ Phases, none wrapped in a ``try``; any failure exits non-zero:
      trains the same model sharded on (2, 2), one card a rank over NCCL:
      depth 6 against world 1, the full depth 28 (ms a step, tok/s, each
      card's peak memory), a save on (2, 2) restored on (4, 1) bitwise,
-     and ``compressed_psum`` on (2, 1, 2).
+     and ``compressed_psum`` on (2, 1, 2); beside its full-depth run it
+     prints the dry run's prediction of the same step on (2, 2): the
+     bytes a collective (which must equal the measured ones) and the
+     peak.
+ 17. the dry run (``launch/dryrun.py``, fake tensors on the host, in a
+     child process started before phase 14) against what this run
+     measured: (a) ``hdp_record``'s bytes a collective of one Gibbs
+     iteration at world 1 with phase 15 (a)'s config equal, label by
+     label, ``ShardedHDP.last["bytes"]`` of each of its iterations; (b)
+     the traced peak of the train step at world 1, B=4, S=512 of
+     deepseek-moe-16b at depth 6, hymba-1.5b and starcoder2-3b within
+     ``DRYRUN_PEAK_REL`` of ``torch.cuda.max_memory_allocated`` in phase
+     14 (c), 11 (c) and 13 (e); both printed.
 The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -488,9 +510,14 @@ MOE_DROP_FACTOR = 0.5
 # flash is checked and timed at; 13 (d): the configs served beside
 # deepseek, each at the depth one card holds beside the script's other
 # tensors (None: whole)
-PHASE13_ATTN = ("deepseek-moe-16b", "llama4-scout-17b-a16e", "chatglm3-6b", "qwen1.5-32b")
+PHASE13_ATTN = ("deepseek-moe-16b", "llama4-scout-17b-a16e", "chatglm3-6b", "qwen1.5-32b",
+                "starcoder2-3b", "musicgen-medium")
 PHASE13_SERVED = (("llama4-scout-17b-a16e", 8), ("mamba2-780m", None),
-                  ("chatglm3-6b", None), ("qwen1.5-32b", 16))
+                  ("chatglm3-6b", None), ("qwen1.5-32b", 16), ("starcoder2-3b", None),
+                  ("musicgen-medium", None))
+# 13 (e): the configs trained whole through launch/train.py, and their steps
+PHASE13_TRAINED = ("starcoder2-3b", "musicgen-medium")
+PHASE13_TRAIN_STEPS = 3
 
 # deepseek-moe-16b training (phase 14), at phase 11's batch, sequence and
 # steps: its depth (a layer holds 587,862,016 parameters at 12 B each of
@@ -532,6 +559,10 @@ COMP_ELEMENTS = 1 << 24
 # checkpoint at 10 B each)
 FOUR_CARD_LOSS_REL = 1e-2
 FOUR_CARD_CKPT_LAYERS = 1
+
+# the dry run (phase 17): its traced peak of a train step against the
+# card's torch.cuda.max_memory_allocated, relative to the measured peak
+DRYRUN_PEAK_REL = 0.2
 
 KS = (2, 3, 257, 1000)
 WS = (8, 33, 64, 256)
@@ -2225,6 +2256,7 @@ def train_phase(dev, cfg) -> dict:
     # (c) the main path through the CLI
     per_step, plain_calls = [], {"attention": 0, "ssd": 0}
     zero_lm_launches()
+    before_gib = torch.cuda.memory_allocated(dev) / 2**30  # held by earlier phases
     _, hist, summary = train_cli([
         "--arch", "hymba-1.5b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
         "--seq", str(TRAIN_S), "--log-every", "1"], per_step, plain_calls)
@@ -2280,6 +2312,7 @@ def train_phase(dev, cfg) -> dict:
     print(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"fn": fn, "full": full, "launches": launches, "hist": hist,
             "train": {"tokens_per_s": summary["tokens_per_s"], "ms_per_step": ms_step,
+                      "memory_before_gib": before_gib,
                       "sec_per_step": secs, "peak_mem_gib": summary["peak_mem_gib"],
                       "idle_share": idle,
                       "parameters": full["parameters"], "split": full["split"],
@@ -2477,8 +2510,8 @@ def paligemma_phase(dev) -> dict:
 
 def phase13_shapes() -> dict:
     """Arch: (B, Hq, Hkv, S, D) of 13 (a), each attention config's
-    prefill."""
-    return {arch: (MOE_B, c.num_heads, c.num_kv_heads, MOE_PROMPT, c.head_dim)
+    prefill (S the prompt and the config's prefix)."""
+    return {arch: (MOE_B, c.num_heads, c.num_kv_heads, MOE_PROMPT + c.prefix_len, c.head_dim)
             for arch in PHASE13_ATTN for c in [get_config(arch)]}
 
 
@@ -2510,9 +2543,9 @@ def time_ssd(gen, b, s, h, p, n, cl) -> dict:
 
 def phase13_timings() -> None:
     """13 (a)'s timings, in a process of their own as ``flash_timings``:
-    flash bf16 on the tensor cores at the four attention configs'
-    prefill shapes, the CUDA-core SSD at mamba2-780m's. Prints the [13]
-    lines, then one JSON object."""
+    flash bf16 on the tensor cores at the attention configs' prefill
+    shapes, the CUDA-core SSD at mamba2-780m's. Prints the [13] lines,
+    then one JSON object."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(13)
     out = {"flash": {arch: time_flash(gen, *shape, torch.bfloat16, "tensor_cores",
@@ -2725,6 +2758,9 @@ def moe_phase(dev) -> dict:
               f"{others[arch]['peak_mem_gib']:.3f} GiB; flash launches {fa}, SSD launches "
               f"{ssd}", flush=True)
         torch.cuda.empty_cache()
+
+    # (e) the new configs trained whole through launch/train.py
+    trained = {arch: train_whole(arch) for arch in PHASE13_TRAINED}
     phase_s = time.perf_counter() - t_phase
     print(f"[13] phase 13 took {phase_s:.1f} s", flush=True)
     return {"launches": launches, "launches_by_route": by_route, "errs": errs,
@@ -2739,7 +2775,48 @@ def moe_phase(dev) -> dict:
                                        "capacity_factor": nodrop,
                                        "launches_by_route": f32_by_route},
             "dispatch_f32": {str(cf): d for cf, d in disp.items()}, "host_syncs": len(syncs),
-            "served": others, "seconds": phase_s}
+            "served": others, "trained": trained, "seconds": phase_s}
+
+
+def train_whole(arch: str) -> dict:
+    """13 (e): ``launch/train.py --arch arch`` at full width and depth,
+    ``PHASE13_TRAIN_STEPS`` steps at B=4, S=512 (see the docstring)."""
+    c = get_config(arch)
+    layers = c.num_layers
+    per_step, plain_calls = [], {"attention": 0, "ssd": 0}
+    torch.cuda.empty_cache()
+    zero_lm_launches()
+    before_gib = torch.cuda.memory_allocated() / 2**30  # held by earlier phases
+    _, hist, summary = train_cli(
+        ["--arch", arch, "--steps", str(PHASE13_TRAIN_STEPS), "--batch", str(TRAIN_B),
+         "--seq", str(TRAIN_S), "--log-every", "1"], per_step, plain_calls)
+    by_route = dict(FA.flash_attention.launches_by_route)
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == PHASE13_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"{arch} train: losses {losses}")
+    check(all(h["skipped"] == 0 for h in hist), f"{arch} train: a step skipped")
+    want_step = (2 * layers, 0, layers, 0)
+    check(per_step == [want_step] * PHASE13_TRAIN_STEPS,
+          f"{arch} train: per step (flash, ssd launches, plain attention, plain ssd "
+          f"calls) {per_step}, expected {want_step} each")
+    want = 2 * layers * PHASE13_TRAIN_STEPS
+    check(by_route == {"tensor_cores": want, "cuda_cores": 0},
+          f"{arch} train: flash launches by route {by_route}, expected {want} on tensor_cores")
+    secs = [h["sec"] for h in hist[1:]]
+    ms_step = 1e3 * float(np.median(secs))
+    print(f"[13] (e) launch/train.py --arch {arch} ({layers} layers, d_model {c.d_model}, "
+          f"{c.num_heads}/{c.num_kv_heads} heads at D={c.head_dim}, prefix {c.prefix_len}, "
+          f"bf16, seed 0) --steps {PHASE13_TRAIN_STEPS} --batch {TRAIN_B} --seq {TRAIN_S}: "
+          f"losses {[round(x, 4) for x in losses]}, none skipped; every step launched "
+          f"flash {2 * layers} times (all tensor-core) and called the plain attention "
+          f"{layers} times; {summary['tokens_per_s']:.1f} tok/s over the run, "
+          f"{ms_step:.1f} ms a step (median of steps 2-{PHASE13_TRAIN_STEPS}), peak "
+          f"{summary['peak_mem_gib']:.3f} GiB (torch.cuda.max_memory_allocated)", flush=True)
+    torch.cuda.empty_cache()
+    return {"layers": layers, "losses": losses, "tokens_per_s": summary["tokens_per_s"],
+            "ms_per_step": ms_step, "sec_per_step": secs,
+            "peak_mem_gib": summary["peak_mem_gib"], "memory_before_gib": before_gib,
+            "launches_by_route": by_route}
 
 
 @contextlib.contextmanager
@@ -2897,6 +2974,7 @@ def moe_train_phase(dev) -> dict:
     argv = ["--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
             "--seq", str(TRAIN_S), "--log-every", "1"]
     zero_lm_launches()
+    before_gib = torch.cuda.memory_allocated(dev) / 2**30  # held by earlier phases
     with recording_moe() as rec:
         trained, hist, summary = train_cli(argv, per_step, plain_calls, cfg)
     launches = dict(FA.flash_attention.launches_by_route)
@@ -2978,7 +3056,8 @@ def moe_train_phase(dev) -> dict:
         "parameters": n_params, "memory_at_start_gib": start_gib,
         "warm_loss": warm_loss, "losses": [h["loss"] for h in hist],
         "tokens_per_s": summary["tokens_per_s"], "ms_per_step": ms_step,
-        "sec_per_step": secs, "peak_mem_gib": summary["peak_mem_gib"], "split": split,
+        "sec_per_step": secs, "peak_mem_gib": summary["peak_mem_gib"],
+        "memory_before_gib": before_gib, "split": split,
         "profiled_step": prof_split, "host_syncs": len(syncs), "capacity": cap,
         "dropped_by_layer": dropped, "warm_dropped_by_layer": warm_dropped,
         "dispatch_f32": {"layers": MOE_GRAD_LAYERS, "capacity_factor": MOE_DROP_FACTOR,
@@ -3054,6 +3133,7 @@ def shard_world1(work: str) -> None:
               f"15 (a) iteration {it}: psi off the simplex")
         rec["iterations"].append({"it": it, "launches_by_route": by_route,
                                   "bytes": sh.last["bytes"]})
+        rec["cfg"], rec["corpus_shape"] = cfg._asdict(), list(tokens.shape)
         if it < SHARD_ITERS:
             return
         varphi = sh.draw_varphi(state)
@@ -3256,7 +3336,10 @@ def sharded_phase(dev, phase3: dict, backend: str = "gloo") -> dict:
     print(f"[15] phase 15 took {phase_s:.1f} s", flush=True)
     return {"launches": sum(main_by_route.values()), "launches_by_route": main_by_route,
             "launches_ranks": {w: r["launches_by_route"] for w, r in runs.items() if w > 1},
-            "summary": summary, "runs": runs, "seconds": phase_s}
+            "summary": summary, "runs": runs, "seconds": phase_s,
+            # (a)'s config and each iteration's bytes a collective, for phase 17
+            "world1": {"cfg": w1["cfg"], "corpus_shape": w1["corpus_shape"],
+                       "iteration_bytes": [r["bytes"] for r in w1["iterations"]]}}
 
 
 # ---- 16. the sharded LM trainer, the sampler's --ckpt, compression ------------------
@@ -3617,10 +3700,140 @@ def four_cards(device: str = "cuda") -> dict:
                  "restored_on": lead["ckpt"]["restored_on"], "bitwise": not differ,
                  "train_1_step_and_save_s": lead["ckpt"]["train_and_save_s"],
                  "restore_s": max(r["ckpt"]["restore_s"] for r in recs)},
-        "compression": [r["compression"] for r in recs],
-        "seconds": time.perf_counter() - t0}
+        "compression": [r["compression"] for r in recs]}
+    out["dryrun"] = four_card_prediction(get_config("deepseek-moe-16b", smoke=cpu),
+                                         fs["bytes_by_collective"], peaks)
+    out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
     return out
+
+
+def four_card_prediction(cfg, measured_bytes: dict, peaks) -> dict:
+    """The dry run's rank-0 trace of ``four_cards``' full-depth step on
+    (2, 2) beside what the ranks measured: the bytes a collective over the
+    run's steps must equal the trace's times the steps; the peak is
+    printed beside each card's (and held within ``DRYRUN_PEAK_REL`` of the
+    largest on the card; the CPU has no peak)."""
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    rec = DR.trace_lm(cfg, "train", MESH.Grid((2, 2), MESH.AXES_2D, 0), TRAIN_B, TRAIN_S)
+    want = {k: v * SHARDED_LM_STEPS for k, v in rec["collectives"].items()}
+    check(measured_bytes == want, f"four cards: bytes over {SHARDED_LM_STEPS} steps "
+          f"{measured_bytes}, the dry run's {want}")
+    pred = rec["memory"]["peak_bytes"] / 2**30
+    print(f"[four cards] the dry run's trace of the full-depth step on (2, 2), rank 0 "
+          f"({time.perf_counter() - t0:.1f} s on the host): bytes a step "
+          f"{rec['collectives']}, equal to each rank's over {SHARDED_LM_STEPS} steps / "
+          f"{SHARDED_LM_STEPS}; peak {pred:.3f} GiB against the cards' {peaks}", flush=True)
+    if peaks is not None:
+        rel = abs(pred - max(peaks)) / max(peaks)
+        check(rel <= DRYRUN_PEAK_REL, f"four cards: predicted peak {pred} GiB, measured "
+              f"{peaks}")
+    return {"bytes_per_step": rec["collectives"], "predicted_peak_gib": pred,
+            "measured_peak_gib_by_rank": peaks}
+
+
+# ---- 17. the dry run against this run's measurements --------------------------------
+
+# phase 17 (b): the configs whose train step the dry run predicts, each at
+# the depth this run trains it (None: whole), and the phase that measures it
+DRYRUN_TRAINED = (("deepseek-moe-16b", MOE_TRAIN_LAYERS, "14 (c)"),
+                  ("hymba-1.5b", None, "11 (c)"), ("starcoder2-3b", None, "13 (e)"))
+
+
+def dryrun_predictions(path: str) -> None:
+    """Phase 17 (b)'s predictions, in a child process that sees no card:
+    the dry run's traced train step of each ``DRYRUN_TRAINED`` config at
+    world 1, B=4, S=512, on fake tensors. Writes JSON to ``path``."""
+    from repro_torch.launch import dryrun as DR
+
+    out = {}
+    for arch, layers, _ in DRYRUN_TRAINED:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        rec = DR.trace_lm(cfg, "train", MESH.Grid((1, 1), MESH.AXES_2D, 0), TRAIN_B,
+                          TRAIN_S + cfg.prefix_len)
+        out[arch] = {"layers": cfg.num_layers, "peak_bytes": rec["memory"]["peak_bytes"],
+                     "state_bytes": rec["memory"]["state_bytes"], "flops": rec["flops"],
+                     "collectives": rec["collectives"],
+                     "trace_s": time.perf_counter() - t0}
+    Path(path).write_text(json.dumps(out))
+
+
+def start_dryrun_predictions(work: Path) -> subprocess.Popen:
+    """``dryrun_predictions`` in a child process on the host's CPU (no
+    card visible to it), while the card runs the phases before 17."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    with open(work / "predictions.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as C; "
+             f"C.dryrun_predictions({str(work / 'predictions.json')!r})"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
+def dryrun_phase(dev, child: subprocess.Popen, work: Path, world1: dict,
+                 measured: dict) -> dict:
+    """Phase 17 (see the docstring). ``world1`` is phase 15 (a)'s config
+    and bytes, ``measured`` each ``DRYRUN_TRAINED`` config's peak GiB and
+    the GiB the script's earlier phases held on the card as its training
+    began (which the peak includes and the dry run does not)."""
+    from repro_torch.configs.shapes import HDPCell
+    from repro_torch.launch import dryrun as DR
+
+    t_phase = time.perf_counter()
+    # (a) one Gibbs iteration's bytes a collective at world 1
+    cfg = world1["cfg"]
+    d, length = world1["corpus_shape"]
+    rec = DR.hdp_record(HDPCell("pubmed-0.01", V=cfg["V"], D=d, max_len=length, K=cfg["K"]),
+                        MESH.Grid((1, 1), MESH.AXES_2D, 0), z_impl=cfg["z_impl"],
+                        bucket=cfg["bucket"], device=dev)
+    check(rec["config"] == cfg, f"17 (a): the dry run's config {rec['config']}, phase "
+          f"15 (a)'s {cfg}")
+    for i, got in enumerate(world1["iteration_bytes"]):
+        check(got == rec["collectives"], f"17 (a): iteration {i + 1}'s bytes {got}, the "
+              f"dry run's {rec['collectives']}")
+    print(f"[17] (a) the dry run's bytes a collective of one Gibbs iteration at world 1 "
+          f"(hdp_record: K={cfg['K']}, V={cfg['V']}, W={cfg['bucket']}, alias in the "
+          f"kernel {rec['alias_in_kernel']}) equal ShardedHDP.last['bytes'] of each of "
+          f"phase 15 (a)'s {len(world1['iteration_bytes'])} iterations, label by label: "
+          f"{rec['collectives']}", flush=True)
+
+    # (b) the traced peak of a train step against the card's
+    try:
+        child.wait(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    check(child.returncode == 0, f"17 (b): the dry run's child exited "
+          f"{child.returncode}:\n{(work / 'predictions.log').read_text()[-4000:]}")
+    preds = json.loads((work / "predictions.json").read_text())
+    peaks = {}
+    for arch, _, phase in DRYRUN_TRAINED:
+        p = preds[arch]["peak_bytes"] / 2**30
+        m, before = measured[arch]
+        rel = abs(p - m) / m
+        peaks[arch] = {"layers": preds[arch]["layers"], "predicted_gib": p,
+                       "measured_gib": m, "rel": rel, "measured_in": phase,
+                       "held_before_gib": before, "rel_beside_held": abs(p + before - m) / m,
+                       "state_bytes": preds[arch]["state_bytes"],
+                       "trace_s": preds[arch]["trace_s"]}
+        print(f"[17] (b) {arch} at {preds[arch]['layers']} layers, world 1, B={TRAIN_B} "
+              f"S={TRAIN_S}: the dry run's traced peak {p:.3f} GiB (state "
+              f"{sum(preds[arch]['state_bytes'].values()) / 2**30:.3f} GiB, traced in "
+              f"{preds[arch]['trace_s']:.1f} s on the host), phase {phase}'s "
+              f"torch.cuda.max_memory_allocated {m:.3f} GiB: {rel:.2%} apart "
+              f"(bar {DRYRUN_PEAK_REL:.0%}); the earlier phases held {before:.3f} GiB on "
+              f"the card as that training began, and the prediction with them is "
+              f"{peaks[arch]['rel_beside_held']:.2%} apart", flush=True)
+        check(rel <= DRYRUN_PEAK_REL, f"17 (b) {arch}: predicted {p} GiB, measured {m} GiB")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[17] phase 17 took {phase_s:.1f} s", flush=True)
+    return {"hdp_bytes": rec["collectives"], "peaks": peaks, "seconds": phase_s}
 
 
 def phases_1_to_13(dev) -> dict:
@@ -4138,6 +4351,22 @@ def phases_1_to_13(dev) -> dict:
             "ms", "event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_event_ms", "shape")},
         "configs": moe["timed"]["flash"],
+        # 13 (e): starcoder2-3b trained whole, forward and recompute
+        "launches_train_starcoder2": moe["trained"]["starcoder2-3b"]["launches_by_route"],
+    }, {
+        # phase 13: the tensor-core kernel at D=64 on musicgen-medium's main
+        # path (a 256-position prefix before the prompt), served and trained
+        "name": "flash_attention_d64", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
+        "launches": sum(moe["served"]["musicgen-medium"]["flash_launches_by_route"].values()),
+        "launches_by_route": moe["served"]["musicgen-medium"]["flash_launches_by_route"],
+        "launches_train": moe["trained"]["musicgen-medium"]["launches_by_route"]["tensor_cores"],
+        "launches_train_by_route": moe["trained"]["musicgen-medium"]["launches_by_route"],
+        "max_abs_err": moe["errs"]["musicgen-medium"],
+        **{k: moe["timed"]["flash"]["musicgen-medium"][k] for k in (
+            "ms", "event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_event_ms", "shape")},
     }, {
         # phase 13: the CUDA-core SSD kernel at mamba2-780m's state (N=128)
         # on its main path
@@ -4160,7 +4389,7 @@ def phases_1_to_13(dev) -> dict:
                                            "seconds")},
         "deepseek_moe": {k: moe[k] for k in ("serve", "consistency_f32_depth4",
                                              "dispatch_f32", "host_syncs", "seconds")},
-        "served_phase13": moe["served"],
+        "served_phase13": moe["served"], "trained_phase13": moe["trained"],
         "hdp_main": {k: summary[k] for k in ("tokens_per_s", "sec_per_iter")},
         "stream_lanes": {k: laned[k] for k in (
             "sec_per_iter", "delta_reduce_mb_per_iter", "block_exchange", "metrics",
@@ -4174,7 +4403,26 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     out = phases_1_to_13(dev)
+    work17 = Path(tempfile.mkdtemp(prefix="chip_smoke_phase17_"))
+    predictions = start_dryrun_predictions(work17)
+    try:
+        phases_14_to_17(dev, out, predictions, work17)
+    finally:
+        if predictions.poll() is None:
+            predictions.kill()
+            predictions.wait()
+        shutil.rmtree(work17, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
+
+def phases_14_to_17(dev, out: dict, predictions: subprocess.Popen, work17: Path) -> None:
+    """Phases 14-17, adding their numbers to ``out``, the kernels line's
+    object."""
     # ---- 14. deepseek-moe-16b training at full width, depth 6 -------------------
     moe_train = moe_train_phase(dev)
     d128 = next(k for k in out["kernels"] if k["name"] == "flash_attention_d128")
@@ -4205,12 +4453,12 @@ def main() -> int:
         "launches_sharded_train": sharded_lm["launches_by_route"]["tensor_cores"],
         "launches_sharded_train_by_route": sharded_lm["launches_by_route"]})
     out["sharded_lm"] = {k: v for k, v in sharded_lm.items() if k != "launches_by_route"}
-    print(json.dumps(out), flush=True)
-    print(nvidia_smi(), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+
+    # ---- 17. the dry run against this run's measurements ---------------------------
+    out["dryrun"] = dryrun_phase(dev, predictions, work17, sharded["world1"], {
+        arch: (run["peak_mem_gib"], run["memory_before_gib"]) for arch, run in (
+            ("deepseek-moe-16b", moe_train["train"]), ("hymba-1.5b", out["train"]),
+            ("starcoder2-3b", out["trained_phase13"]["starcoder2-3b"]))})
 
 
 if __name__ == "__main__":

@@ -22,6 +22,11 @@ tensor on ``device`` and returns one there.
 bfloat16 tables, which the backends' reductions do not all take, gather
 as they are. ``sent`` adds up the bytes of the tensors this rank hands to
 the collectives, by label, until the caller clears it.
+
+``TracingCollectives`` is one rank of a grid with no process group: each
+call allocates and counts what the real one does and moves nothing, so
+``launch/dryrun.py`` traces a rank's step on fake tensors and reads its
+bytes from the code that runs on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ class Collectives:
     """The collectives of one rank of ``grid`` on ``backend``, its tensors
     on ``device``."""
 
+    # the calls that move the bytes (``torch.distributed``'s)
+    wire = dist
+
     def __init__(self, grid: Grid, backend: str, device: torch.device,
                  axis_sets=()):
         if backend not in BACKENDS:
@@ -48,6 +56,14 @@ class Collectives:
             raise ValueError(
                 f"grid of {grid.world_size} ranks at rank {grid.rank}, the "
                 f"process group {dist.get_world_size()} at {dist.get_rank()}")
+        self._setup(grid, backend, device)
+        for key in self._group_keys(axis_sets):
+            for ranks in grid.lines(key):
+                group = dist.new_group(ranks)
+                if grid.rank in ranks:
+                    self._groups[key] = group
+
+    def _setup(self, grid: Grid, backend: str, device: torch.device) -> None:
         self.grid = grid
         self.backend = backend
         self.device = device
@@ -55,14 +71,16 @@ class Collectives:
         self.sent: dict[str, int] = defaultdict(int)
         self._groups: dict[tuple[str, ...], dist.ProcessGroup | None] = {
             grid.axes: None}
-        extra = [self._key(a) for a in axis_sets]
-        for key in (grid.axes[-1:], grid.axes[:-1], *extra):
-            if not key or key in self._groups:
-                continue
-            for ranks in grid.lines(key):
-                group = dist.new_group(ranks)
-                if grid.rank in ranks:
-                    self._groups[key] = group
+
+    def _group_keys(self, axis_sets) -> list[tuple[str, ...]]:
+        """The axis sets that get groups of their own beyond the default
+        one, in the order every rank creates them."""
+        keys = []
+        for key in (self.grid.axes[-1:], self.grid.axes[:-1],
+                    *(self._key(a) for a in axis_sets)):
+            if key and key not in self._groups and key not in keys:
+                keys.append(key)
+        return keys
 
     def _key(self, axes: str | tuple[str, ...]) -> tuple[str, ...]:
         names = as_axes(axes)
@@ -94,7 +112,7 @@ class Collectives:
         buf = self._host(x)
         if buf is x:
             buf = x.clone()
-        dist.all_reduce(buf, op=op, group=group)
+        self.wire.all_reduce(buf, op=op, group=group)
         return buf.to(self.device)
 
     def psum(self, x: torch.Tensor, axes, label: str | None = None) -> torch.Tensor:
@@ -113,7 +131,7 @@ class Collectives:
         self._count(label, x)
         xb = self._host(x).view(torch.uint8)
         parts = [torch.empty_like(xb) for _ in range(size)]
-        dist.all_gather(parts, xb, group=group)
+        self.wire.all_gather(parts, xb, group=group)
         return torch.cat(parts, dim=dim).view(x.dtype).to(self.device)
 
     def psum_scatter(self, x: torch.Tensor, axes, dim: int,
@@ -136,5 +154,35 @@ class Collectives:
         group, size = self._group(axes)
         blocks = [c.contiguous() for c in x.chunk(size, dim)]
         out = torch.empty_like(blocks[self.grid.index(axes)])
-        dist.reduce_scatter(out, blocks, group=group)
+        self.wire.reduce_scatter(out, blocks, group=group)
         return out
+
+
+class _NoWire:
+    """Stands in for ``torch.distributed``'s calls: moves nothing."""
+
+    @staticmethod
+    def all_reduce(buf, op=None, group=None) -> None:
+        pass
+
+    @staticmethod
+    def all_gather(parts, x, group=None) -> None:
+        pass
+
+    @staticmethod
+    def reduce_scatter(out, blocks, group=None) -> None:
+        pass
+
+
+class TracingCollectives(Collectives):
+    """Rank ``grid.rank``'s collectives with no process group: the same
+    calls, allocations and ``sent`` counts as ``Collectives`` on NCCL, the
+    card's backend, with tensors that nothing fills (the caller traces on
+    fake tensors, whose values do not exist)."""
+
+    wire = _NoWire
+
+    def __init__(self, grid: Grid, device: torch.device, axis_sets=()):
+        self._setup(grid, "nccl", device)
+        for key in self._group_keys(axis_sets):
+            self._groups[key] = None

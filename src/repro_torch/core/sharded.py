@@ -190,6 +190,34 @@ BYTES_DN_PSUM = "6 psum dn [pod, data]"
 BYTES_DH = "7 psum dh [all]"
 
 
+def iteration_bytes(cfg: H.HDPConfig, grid: Grid, *, in_kernel: bool,
+                    compact_tables: bool = False,
+                    phi_dtype: torch.dtype = torch.float32) -> dict[str, int]:
+    """The bytes one rank hands each collective in one
+    ``ShardedHDP.iteration``, by the labels above, from the config and
+    the grid alone (every rank's are the same): the row sums as int64,
+    the Phi shard (dense z-step) or the supports (prologue mode, float32
+    values and int32 ids of W slots) or the tables (q_a float32, and
+    value/probability and id/alias packs of W slots, 4 bytes a slot or 2
+    compact) of the rank's V / model words, dn whole (K, V) int32 into the
+    scatter and its shard over the other axes, and dh (K, hist_cap + 1)
+    int32."""
+    m = grid.size(MODEL)
+    vm, w = cfg.V // m, min(cfg.bucket, cfg.K)
+    out = {BYTES_ROW_SUMS: cfg.K * 8, BYTES_DN_SCATTER: cfg.K * cfg.V * 4}
+    if grid.axes[:-1]:
+        out[BYTES_DN_PSUM] = cfg.K * vm * 4
+    out[BYTES_DH] = cfg.K * (cfg.hist_cap + 1) * 4
+    if cfg.z_impl == "dense":
+        out[BYTES_PHI] = cfg.K * vm * phi_dtype.itemsize
+    elif in_kernel:
+        out[BYTES_TABLES] = vm * w * (4 + 4)
+    else:
+        item = 2 if compact_tables else 4
+        out[BYTES_TABLES] = vm * 4 + 2 * (vm * 2 * w * item)
+    return out
+
+
 def stream(seed: int, it: int, draw: str, index: int,
            device: torch.device | str) -> torch.Generator:
     """The generator of one draw of iteration ``it``: ``draw`` is one of
@@ -352,6 +380,13 @@ class ShardedHDP:
         dh = self.comm.psum(H.d_histogram(m, cfg.hist_cap), self.grid.axes,
                             label=BYTES_DH)
         return dn_shard, dh
+
+    def iteration_bytes(self) -> dict[str, int]:
+        """``iteration_bytes`` for this sampler: what ``last["bytes"]``
+        holds after each ``iteration``."""
+        return iteration_bytes(self.cfg, self.grid, in_kernel=self.in_kernel,
+                               compact_tables=self.compact_tables,
+                               phi_dtype=self.phi_dtype)
 
     # -- the iteration ----------------------------------------------------------
     def iteration(self, state: ShardState, tokens, mask, *, varphi=None,

@@ -78,6 +78,13 @@ class LMConfig:
     def ssm_active(self) -> bool:
         return self.block_type in ("ssm", "hybrid")
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k cell (SSM state or bounded window)."""
+        return self.block_type == "ssm" or (
+            self.block_type == "hybrid" and self.window is not None
+        )
+
     def smoke(self) -> "LMConfig":
         """Reduced same-family config for CPU smoke tests (the
         reference's ``smoke()`` on the fields the port has)."""

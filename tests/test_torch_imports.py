@@ -38,7 +38,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 78  # every module was reached
+    assert int(out.stdout.strip()) >= 90  # every module was reached
 
 
 LM_TRAIN_MODULES = (
@@ -149,6 +149,33 @@ def test_sharded_cli_under_torchrun_env_without_card_exits_1_with_message():
     assert out.returncode == 1
     assert "no CUDA device is present" in out.stderr
     assert "{" not in out.stdout  # no result was printed
+
+
+SLICE15_MODULES = (
+    "repro_torch.configs.shapes", "repro_torch.core.ref",
+    "repro_torch.core.direct_assignment", "repro_torch.launch.dryrun",
+)
+
+
+def test_slice15_modules_import_no_jax_and_no_repro():
+    """The shape cells, the numpy oracle, the direct-assignment baseline
+    and the dry run, alone in a fresh process: importing the dry run sets
+    no environment variable (the reference's sets ``XLA_FLAGS``), starts
+    no process group and touches no card."""
+    code = (
+        "import importlib, os, sys\n"
+        "before = dict(os.environ)\n"
+        f"for n in {SLICE15_MODULES!r}: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert dict(os.environ) == before\n"
+        "import torch, torch.distributed as dist\n"
+        "assert not dist.is_initialized() and not torch.cuda.is_initialized()\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 OBS_MODULES = (

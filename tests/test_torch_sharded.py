@@ -573,8 +573,8 @@ def _check_one_process_chain(sh, tokens, mask, rows, tag: str, found: Findings):
     everyone = sh.comm.all_gather(torch.cat([got.psi, got.l.float()])[None],
                                   sh.grid.axes, 0)
     found.true(bool((everyone == everyone[0]).all()), f"{tag}: psi, l differ across ranks")
-    found.true(sh.last["bytes"] == _expected_bytes(sh, rows),
-               f"{tag}: bytes {sh.last['bytes']} != {_expected_bytes(sh, rows)}")
+    found.true(sh.last["bytes"] == sh.iteration_bytes(),
+               f"{tag}: bytes {sh.last['bytes']} != {sh.iteration_bytes()}")
     found.info[f"{tag} bytes"] = sh.last["bytes"]
 
 
@@ -597,25 +597,6 @@ def _check_masked_tables(sh, tag: str, found: Findings) -> None:
     for name, a, b in zip(("q_a", "fpack", "ipack"), got, want):
         found.equal(a, b, f"{tag}: masked {name}")
     found.true(bool((got[0][~u_mask] == 0).all()), f"{tag}: unflagged rows built")
-
-
-def _expected_bytes(sh, rows) -> dict:
-    """Each collective's bytes a rank sends in one iteration, from the
-    shapes (the labels of ``core/sharded.py``)."""
-    from repro_torch.core import sharded as SH
-
-    cfg, m = sh.cfg, sh.grid.size("model")
-    vm, w = cfg.V // m, min(cfg.bucket, cfg.K)
-    out = {SH.BYTES_ROW_SUMS: cfg.K * 8, SH.BYTES_DN_SCATTER: cfg.K * cfg.V * 4,
-           SH.BYTES_DN_PSUM: cfg.K * vm * 4, SH.BYTES_DH: cfg.K * (cfg.hist_cap + 1) * 4}
-    if cfg.z_impl == "dense":
-        out[SH.BYTES_PHI] = cfg.K * vm * sh.phi_dtype.itemsize
-    elif sh.in_kernel:
-        out[SH.BYTES_TABLES] = vm * w * (4 + 4)
-    else:
-        item = 2 if sh.compact_tables else 4
-        out[SH.BYTES_TABLES] = vm * 4 + 2 * (vm * 2 * w * item)
-    return out
 
 
 def _gathered(sh, state):

@@ -617,3 +617,58 @@ def test_paligemma_train_steps_match_the_reference_trainer():
                                    rtol=1e-5)
     assert_leaves_close(ts.params, js.params, F32_LEAF_REL)
     assert_leaves_close(ts.mu, js.mu, F32_LEAF_REL)
+
+
+# -- starcoder2-3b (gelu, qkv biases, GQA) and musicgen-medium (a prefix) -----------
+
+def arch_configs(arch, dtype):
+    jc = dataclasses.replace(jax_config(arch, smoke=True), param_dtype=dtype,
+                             compute_dtype=dtype)
+    tc = dataclasses.replace(get_config(arch, smoke=True), param_dtype=dtype,
+                             compute_dtype=dtype)
+    if dtype == "bfloat16":
+        jc = dataclasses.replace(jc, scan_layers=False)
+    return jc, tc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "musicgen-medium"])
+def test_loss_and_every_gradient_of_starcoder2_and_musicgen(arch, dtype):
+    """The loss, every parameter's gradient (starcoder2's qkv biases
+    among them) and, for musicgen, the prefix embeds' gradient: float32
+    against the jitted ``jax.value_and_grad``, bf16 against the un-jitted
+    one over the reference's op-by-op layer loop (ROADMAP C5)."""
+    jc, tc = arch_configs(arch, dtype)
+    params = _jit_init(jc)(jax.random.key(8))
+    bt = JD.SyntheticLMStream(jc.vocab_size, B, S, seed=10, prefix_len=jc.prefix_len,
+                              d_model=jc.d_model).batch(0)
+    cast = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    emb = jnp.asarray(bt["embeds"], cast) if jc.prefix_len else None
+    fn = jax.value_and_grad(lambda p, e, b: JLM.lm_loss(
+        p, jc, b["tokens"], b["targets"], b["mask"], e), argnums=(0, 1))
+    if dtype == "float32":
+        fn = jax.jit(fn)
+    jl, (jg, jge) = fn(params, emb, as_jax(bt))
+    model = lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, device="cpu")
+    model.requires_grad_(True)
+    ps = dict(model.named_parameters())
+    args = [torch.from_numpy(bt[k]) for k in ("tokens", "targets", "mask")]
+    temb = None
+    if jc.prefix_len:
+        temb = torch.from_numpy(np.array(emb, np.float32)).to(tc.cdtype).requires_grad_(True)
+    loss = TLM.lm_loss(model, *args, temb)
+    got = torch.autograd.grad(loss, [*ps.values()] + ([temb] if jc.prefix_len else []))
+    grads = dict(zip(ps, got))
+    loss_atol, rel = ((F32_LOSS_ATOL, F32_LEAF_REL) if dtype == "float32"
+                      else (BF16_LOSS_ATOL, BF16_LEAF_REL))
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=0, atol=loss_atol)
+    assert_leaves_close(grads, jg, rel)
+    if tc.qkv_bias:
+        for name in ("bq", "bk", "bv"):
+            g = grads[f"blocks.0.attn.{name}"]
+            assert g is not None and bool(g.abs().max() > 0), name
+    if jc.prefix_len:
+        want = np.asarray(jge, np.float32)
+        eg = got[-1].float().numpy()
+        assert eg.shape == want.shape and np.abs(want).max() > 0
+        assert np.abs(eg - want).max() <= rel * np.abs(want).max()
