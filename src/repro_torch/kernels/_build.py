@@ -33,8 +33,8 @@ NVCC_FLAGS = (
 # Each source's own flags, after NVCC_FLAGS. Both hdp_z kernels build
 # without multiply-add contraction, so that they match their plain
 # version bit for bit (never --use_fast_math); the two CUDA-core LM
-# kernels keep the flags they were measured with. The tensor-core SSD
-# kernel contracts (its segment sums use _rn intrinsics, which never
+# kernels keep the flags they were measured with. The two tensor-core SSD
+# kernels contract (their segment sums use _rn intrinsics, which never
 # fuse), and so do other sources (the tensor-core flash kernel): they
 # are held to their plain versions within stated tolerances.
 SOURCE_FLAGS = {
@@ -43,6 +43,7 @@ SOURCE_FLAGS = {
     "flash_attention.cu": ("--fmad=false",),
     "ssd_chunk.cu": ("--fmad=false",),
     "ssd_chunk_sm90.cu": ("--fmad=true",),
+    "ssd_chunk_sm90_wide.cu": ("--fmad=true",),
 }
 DEFAULT_SOURCE_FLAGS = ("--fmad=true",)
 

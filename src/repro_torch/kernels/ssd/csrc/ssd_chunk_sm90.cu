@@ -96,6 +96,11 @@ constexpr int kMaxP = 64;
 constexpr int kMaxDevices = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Flag, Strides, the cp.async helpers, split, exp2_approx, mma, mma3_add
+// and load_x have copies in ssd_chunk_sm90_wide.cu: a fix to one belongs
+// in the other. Each source builds alone, with its own flags, and
+// launch/ablate_ssd.py patches these functions' text in each file.
+
 // A compile-time flag passed to a generic lambda.
 template <bool B>
 struct Flag {

@@ -5,22 +5,26 @@
 dec (B,S,H)), all float32, for float32 x (B,S,H,P), dt (B,S,H), a (H,)
 and B, C (B,S,H,N), S a multiple of ``chunk``. For CPU tensors it runs
 the plain version ``ref.ssd_intra_chunk_ref``. For CUDA tensors it
-launches one of two kernels on the current stream, chosen by ``route``
+launches one of three kernels on the current stream, chosen by ``route``
 from the shape, or raises; nothing falls back:
 
 - ``tensor_cores``: chunk <= 128, P <= 64 and N <= 32 with P and N
   multiples of 4, ``csrc/ssd_chunk_sm90.cu`` (all three products on the
   tensor cores by ``mma.sync`` in three TF32 passes, tiles staged by
-  cp.async). Its 16-byte copies need x, B and C at 16-byte aligned base
-  pointers and strides; ``cp_async_check`` refuses inputs that break
-  that.
+  cp.async).
+- ``tensor_cores_wide``: the same chunk and P with 32 < N <= 128
+  (mamba2-780m's N=128), ``csrc/ssd_chunk_sm90_wide.cu`` (the same
+  products; B and C streamed in slices of 32 state columns, C B^T
+  computed once for a group of heads that share B and C).
 - ``cuda_cores``: every other shape, ``csrc/ssd_chunk.cu`` (the products
   on the CUDA cores from shared memory).
 
-Both kernels take the pairwise decays L and the decays to the chunk's
-end from segment sums of dt A (``ref.segsum``), never as exp(cum_i -
-cum_j), whose two large sums cancel on the model's dt and A; cum gives
-only dec = exp(cum).
+The two tensor-core kernels copy x, B and C 16 bytes at a time, which
+needs 16-byte aligned base pointers and strides; ``cp_async_check``
+refuses inputs that break that. All three kernels take the pairwise
+decays L and the decays to the chunk's end from segment sums of dt A
+(``ref.segsum``), never as exp(cum_i - cum_j), whose two large sums
+cancel on the model's dt and A; cum gives only dec = exp(cum).
 
 Inputs are read through their strides as long as the last dim is
 contiguous, so B and C shared by all heads may come as a stride-0
@@ -41,11 +45,14 @@ from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "ssd_chunk.cu"            # the CUDA-core kernel
-SM90_SOURCE = CSRC / "ssd_chunk_sm90.cu"  # the tensor-core kernel
-SOURCES = (SOURCE, SM90_SOURCE)
-ROUTES = ("tensor_cores", "cuda_cores")
-# the largest chunk, head dim and state the tensor-core kernel takes
+SM90_SOURCE = CSRC / "ssd_chunk_sm90.cu"  # the tensor-core kernel, N <= 32
+WIDE_SOURCE = CSRC / "ssd_chunk_sm90_wide.cu"  # the tensor-core kernel, N <= 128
+SOURCES = (SOURCE, SM90_SOURCE, WIDE_SOURCE)
+ROUTES = ("tensor_cores", "tensor_cores_wide", "cuda_cores")
+# the largest chunk, head dim and state the tensor-core kernels take
 SM90_MAX_CHUNK, SM90_MAX_P, SM90_MAX_N = 128, 64, 32
+WIDE_MAX_N = 128
+WIDE_SLICE = 32  # state columns of a slice of B and C in the wide kernel
 CP_ASYNC_ALIGN = 16  # bytes, for base pointers and strides
 
 
@@ -73,6 +80,28 @@ def _lib_sm90() -> ctypes.CDLL:
     lib.ssd_chunk_sm90_ctas_per_sm.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
     lib.ssd_chunk_sm90_ctas_per_sm.restype = ci
     return lib
+
+
+@functools.cache
+def _lib_wide() -> ctypes.CDLL:
+    lib = _bind(WIDE_SOURCE, "ssd_chunk_sm90_wide")
+    ci = ctypes.c_int
+    lib.ssd_chunk_sm90_wide_plan.argtypes = [ci] * 7 + [ctypes.POINTER(ci)]
+    lib.ssd_chunk_sm90_wide_plan.restype = ci
+    return lib
+
+
+def wide_plan(b: int, s: int, h: int, p: int, n: int, chunk: int,
+              shared: bool) -> dict:
+    """How the wide kernel splits (B, S, H, P, N, chunk) on the current
+    card: head groups a (batch, chunk) (each computes C B^T once; H where
+    B or C differ by head), units of work, the persistent grid and CTAs
+    an SM (builds the kernel if needed)."""
+    out = (ctypes.c_int * 4)()
+    err = _lib_wide().ssd_chunk_sm90_wide_plan(b, s, h, p, n, chunk, int(shared), out)
+    if err:
+        raise RuntimeError(f"ssd_chunk_sm90_wide_plan failed: cudaError_t {err}")
+    return dict(zip(("head_groups", "units", "grid", "ctas_per_sm"), out))
 
 
 def sm90_ctas_per_sm(chunk: int, n: int, p: int) -> int:
@@ -106,14 +135,37 @@ def sm90_smem_bytes(chunk: int, n: int, p: int) -> int:
     return 4 * (2 * stage + 3 * clp + 8 * 8 + 4 * (16 * 17 // 2))
 
 
+def wide_smem_bytes(chunk: int, n: int, p: int) -> int:
+    """Dynamic shared memory of one CTA of the wide tensor-core kernel: B
+    whole (rows of N + 4 floats, N padded to 32), two slices of C (rows
+    of 36) and two stages of x (rows of P + 4, P padded to 8) and dt,
+    over chunk rows padded to 16; G's lower triangle of 16 x 16 blocks;
+    the segment-sum lines pre, sfx and w*dt (a padded chunk each), the
+    mid sums between 16-row sub-blocks (8 x 8), the sums before and
+    after each (2 x 8) and one 16 x 16 lower-triangular table for each of
+    the 8 warps. ``ssd_chunk_sm90_wide_smem_bytes`` in the source
+    computes the same."""
+    clp = -(-chunk // 16) * 16
+    pp, np_ = -(-p // 8) * 8, -(-n // WIDE_SLICE) * WIDE_SLICE
+    rt = clp // 16
+    floats = (clp * (np_ + 4) + 2 * clp * (WIDE_SLICE + 4) + 2 * clp * (pp + 4)
+              + 2 * clp + rt * (rt + 1) // 2 * 256 + 3 * clp + 8 * 8 + 2 * 8
+              + 8 * (16 * 17 // 2))
+    return 4 * floats
+
+
 def route(chunk: int, n: int, p: int) -> str:
     """The kernel that runs the intra-chunk pass at chunk length
     ``chunk``, state ``n`` and head dim ``p`` on the card. Every shape
-    the tensor-core kernel takes fits an H100 block's shared memory
-    (148,352 B at most, against 232,448)."""
-    if (chunk <= SM90_MAX_CHUNK and 0 < p <= SM90_MAX_P and 0 < n <= SM90_MAX_N
-            and p % 4 == 0 and n % 4 == 0):
-        return "tensor_cores"
+    the tensor-core kernels take fits an H100 block's shared memory
+    (148,352 B at most for N <= 32, 218,176 B for the wide kernel,
+    against 232,448)."""
+    if (chunk <= SM90_MAX_CHUNK and 0 < p <= SM90_MAX_P and p % 4 == 0
+            and 0 < n and n % 4 == 0):
+        if n <= SM90_MAX_N:
+            return "tensor_cores"
+        if n <= WIDE_MAX_N:
+            return "tensor_cores_wide"
     return "cuda_cores"
 
 
@@ -137,7 +189,7 @@ def cp_async_check(name: str, t: torch.Tensor) -> None:
 
 def check_operands(r: str, **tensors: torch.Tensor) -> None:
     """What route ``r``'s kernel needs of its inputs on the card: float32,
-    a contiguous last dim, and on the tensor-core route the 16-byte rules
+    a contiguous last dim, and on the tensor-core routes the 16-byte rules
     of ``cp_async_check`` for x, bmat and cmat (dt is copied 4 bytes at
     a time, and a is copied contiguous)."""
     for name, t in tensors.items():
@@ -145,7 +197,7 @@ def check_operands(r: str, **tensors: torch.Tensor) -> None:
             raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
         if t.stride(-1) != 1:
             raise ValueError(f"the last dim of {name} must be contiguous")
-        if r == "tensor_cores" and name in ("x", "bmat", "cmat"):
+        if r != "cuda_cores" and name in ("x", "bmat", "cmat"):
             cp_async_check(name, t)
 
 
@@ -179,6 +231,8 @@ def _launch(r: str, x, dt, a, bmat, cmat, chunk: int):
     dev = x.device
     if r == "tensor_cores":
         lib, name = _lib_sm90(), "ssd_chunk_sm90"
+    elif r == "tensor_cores_wide":
+        lib, name = _lib_wide(), "ssd_chunk_sm90_wide"
     else:
         lib, name = _lib(), "ssd_chunk"
         smem = lib.ssd_chunk_smem_bytes(chunk, n, p)

@@ -46,8 +46,16 @@ def test_the_tensor_core_ssd_kernel_contracts_and_is_built_beside_the_other():
     assert "--fmad=true" in flags and "--use_fast_math" not in flags
     # the CUDA-core kernel keeps the flags it was measured with
     assert "--fmad=false" in _build.nvcc_flags(SSD.SOURCE)
-    assert SSD.SOURCES == (SSD.SOURCE, SSD.SM90_SOURCE)
+    assert SSD.SOURCES == (SSD.SOURCE, SSD.SM90_SOURCE, SSD.WIDE_SOURCE)
     assert all(src.exists() for src in SSD.SOURCES)
+
+
+def test_the_wide_ssd_kernel_contracts_and_is_built_beside_the_others():
+    assert SSD.WIDE_SOURCE.name == "ssd_chunk_sm90_wide.cu"
+    assert _build.SOURCE_FLAGS["ssd_chunk_sm90_wide.cu"] == ("--fmad=true",)
+    flags = _build.nvcc_flags(SSD.WIDE_SOURCE)
+    assert "--fmad=true" in flags and "--use_fast_math" not in flags
+    assert len(set(map(_build.library_path, SSD.SOURCES))) == len(SSD.SOURCES)
 
 
 def test_a_change_of_flags_changes_the_library_path(monkeypatch):
@@ -95,6 +103,22 @@ def test_the_ssd_ablation_patches_apply(tmp_path, monkeypatch):
         assert path.name == SSD.SM90_SOURCE.name
         assert (path.read_text() == text) == (name == "kernel")
         assert _build.nvcc_flags(path) == _build.nvcc_flags(SSD.SM90_SOURCE)
+
+
+def test_the_wide_ssd_ablation_patches_apply(tmp_path, monkeypatch):
+    from repro_torch.launch import ablate_ssd as A
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    kernel = A.KERNELS["mamba2"]
+    sources = A.patched_sources(kernel)
+    assert set(sources) == {"kernel", *A.WIDE_PATCHES}
+    assert set(kernel.held) == set(sources) - {"one_pass", "rounded_lo"}
+    text = SSD.WIDE_SOURCE.read_text()
+    for name, path in sources.items():
+        assert path.name == SSD.WIDE_SOURCE.name
+        assert (path.read_text() == text) == (name == "kernel")
+        assert _build.nvcc_flags(path) == _build.nvcc_flags(SSD.WIDE_SOURCE)
+        assert path.parent.parent.name == ("ssd" if name == "kernel" else "ablate_ssd_wide")
 
 
 def test_ranks_that_build_together_compile_once(tmp_path, monkeypatch):

@@ -25,7 +25,7 @@ from repro_torch.kernels.ssd.ops import ssd, ssd_decode_step  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
     decay_to_end, segsum, ssd_chunked, ssd_intra_chunk_ref, ssd_ref)
 from repro_torch.kernels.ssd.ssd import (  # noqa: E402
-    check_operands, route, sm90_smem_bytes, ssd_intra_chunk)
+    check_operands, route, sm90_smem_bytes, ssd_intra_chunk, wide_smem_bytes)
 
 ATOL = 2e-4
 SHAPES = [  # the parameter sets of tests/test_ssd.py: b, s, h, p, n, chunk
@@ -79,12 +79,12 @@ def test_ssd_matches_reference_and_sequential(b, s, h, p, n, chunk):
 
 def test_mamba2_shape_matches_the_reference():
     """mamba2-780m's state, head dim and chunk (N=128, P=64, chunk 128;
-    the CUDA-core route on the card) at B=1, S=256, H=2: the plain
+    the wide tensor-core route on the card) at B=1, S=256, H=2: the plain
     intra-chunk pass against the Pallas kernel in interpret mode, and
     the whole SSD against the reference's kernel path and its
     sequential scan."""
     b, s, h, p, n, chunk = 1, 256, 2, 64, 128, 128
-    assert route(chunk, n, p) == "cuda_cores"
+    assert route(chunk, n, p) == "tensor_cores_wide"
     jx, tx = mk(128, b, s, h, p, n)
     for g, w in zip(ssd_intra_chunk(*tx, chunk=chunk),
                     jax_intra(*jx, chunk=chunk, interpret=True)):
@@ -237,11 +237,99 @@ def kernel_segsum(steps: torch.Tensor) -> torch.Tensor:
     return seg[..., :cl, :cl]
 
 
-def emulate_tensor_core_kernel(x, dt, a, bmat, cmat, *, chunk, passes=3):
+def toward_zero(v: torch.Tensor) -> torch.Tensor:
+    """float64 ``v`` to float32, rounded toward zero."""
+    f = v.float()
+    return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def mm_3xtf32_ksteps(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b as the wide kernel takes it: each operand split as
+    ``tf32_split`` splits it, the tensor core reading lo truncated; each
+    k-step (8 of the inner dim) its passes lo.hi, hi.lo, hi.hi into a
+    zeroed accumulator, each pass's sum exact and then truncated to
+    float32 as the tensor core's adds truncate; each k-step added to a
+    float32 running sum in k order."""
+    ah, al = (tensor_core_reads(t).double() for t in tf32_split(a))
+    bh, bl = (tensor_core_reads(t).double() for t in tf32_split(b))
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        k = slice(k0, k0 + 8)
+        part = torch.zeros_like(acc)
+        terms = ((ah, bh),) if passes == 1 else ((al, bh), (ah, bl), (ah, bh))
+        for u, v in terms:
+            part = toward_zero(part.double() + torch.matmul(u[..., k], v[..., k, :]))
+        acc = acc + part
+    return acc
+
+
+def wide_kernel_lines(steps: torch.Tensor):
+    """The wide kernel's segment sums of float32 ``steps`` (..., CL), each
+    a float32 sum in its own order: per 16-row sub-block the lines pre
+    (from the block's first row) and sfx (from j + 1 to its last row)
+    and its total; mid_JI the totals of J+1..I-1, before_I those of
+    0..I-1 and after_J those of J+1..end, each summed upward; the
+    diagonal block's column c summed from row c + 1 down. Returns (seg
+    (..., CL, CL), -inf above the diagonal; the exponent of dec, before +
+    pre; the exponent of the decay to the chunk's end, sfx + after)."""
+    cl = steps.shape[-1]
+    clp = -(-cl // 16) * 16
+    a = torch.cat([steps, steps.new_zeros(steps.shape[:-1] + (clp - cl,))], -1)
+    nb = clp // 16
+    blocks = a.reshape(a.shape[:-1] + (nb, 16))
+    pre, sfx = torch.empty_like(blocks), torch.empty_like(blocks)
+    p = blocks[..., 0]
+    s = torch.zeros_like(p)
+    pre[..., 0] = p
+    for k in range(16):
+        if k:
+            p = p + blocks[..., k]
+            pre[..., k] = p
+        sfx[..., 15 - k] = s
+        s = s + blocks[..., 15 - k]
+    tot = pre[..., 15]
+    zero = torch.zeros_like(tot[..., 0])
+    before, after, mid = [], [], {}
+    for jb in range(nb):
+        run = zero
+        for ib in range(jb):
+            run = run + tot[..., ib]
+        before.append(run)
+        run = zero
+        for ib in range(jb + 1, nb):
+            mid[jb, ib] = run
+            run = run + tot[..., ib]
+        after.append(run)
+    seg = a.new_full(a.shape + (clp,), float("-inf"))
+    for ib in range(nb):
+        ri = slice(16 * ib, 16 * ib + 16)
+        diag = a.new_full(a.shape[:-1] + (16, 16), float("-inf"))
+        for c in range(16):
+            run = torch.zeros_like(blocks[..., ib, 0])
+            diag[..., c, c] = run
+            for rw in range(c + 1, 16):
+                run = run + blocks[..., ib, rw]
+                diag[..., rw, c] = run
+        seg[..., ri, ri] = diag
+        for jb in range(ib):
+            rj = slice(16 * jb, 16 * jb + 16)
+            seg[..., ri, rj] = ((sfx[..., jb, None, :] + mid[jb, ib][..., None, None])
+                                + pre[..., ib, :, None])
+    cum = (torch.stack(before, -1)[..., None] + pre).reshape(a.shape)
+    end = (sfx + torch.stack(after, -1)[..., None]).reshape(a.shape)
+    return seg[..., :cl, :cl], cum[..., :cl], end[..., :cl]
+
+
+def emulate_tensor_core_kernel(x, dt, a, bmat, cmat, *, chunk, passes=3, wide=False):
     """The kernel's arithmetic on the CPU: cum and the decays to the end
     sequential float32 sums, seg as ``kernel_segsum``, then G, y and st in
     three TF32 passes (or ``passes``) with the masked in-register
-    scaling. Returns (y, st, dec) as ``ssd_intra_chunk``."""
+    scaling. Returns (y, st, dec) as ``ssd_intra_chunk``. With ``wide``
+    the wide kernel's (``csrc/ssd_chunk_sm90_wide.cu``) order: the
+    segment sums of ``wide_kernel_lines`` and each product as
+    ``mm_3xtf32_ksteps`` takes it: the passes' sums
+    truncated, 16 k-steps over N = 128 in G, over j in y and the state,
+    added in float32."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     nc, cl = s // chunk, chunk
@@ -250,13 +338,22 @@ def emulate_tensor_core_kernel(x, dt, a, bmat, cmat, *, chunk, passes=3):
     br = bmat.reshape(b, nc, cl, h, n).permute(0, 1, 3, 2, 4)
     cr = cmat.reshape(b, nc, cl, h, n).permute(0, 1, 3, 2, 4)
     steps = dtr * a[None, None, :, None]
-    g = mm_3xtf32(cr, br.transpose(-1, -2), passes)
-    scores = g * (torch.exp2(kernel_segsum(steps) * LOG2E) * dtr[..., None, :])
-    y = mm_3xtf32(scores, xr, passes)
-    wdt = torch.exp(decay_to_end(steps, 3)) * dtr
-    st = mm_3xtf32((br * wdt[..., None]).transpose(-1, -2), xr, passes)
+    if wide:
+        mm = mm_3xtf32_ksteps
+        seg, cum, end = wide_kernel_lines(steps)
+    else:
+        mm = mm_3xtf32
+        seg, cum, end = kernel_segsum(steps), torch.cumsum(steps, 3), decay_to_end(steps, 3)
+    g = mm(cr, br.transpose(-1, -2), passes)
+    if wide:  # the kernel's order: (G * L) * dt
+        scores = (g * torch.exp2(seg * LOG2E)) * dtr[..., None, :]
+    else:
+        scores = g * (torch.exp2(seg * LOG2E) * dtr[..., None, :])
+    y = mm(scores, xr, passes)
+    wdt = torch.exp(end) * dtr
+    st = mm((br * wdt[..., None]).transpose(-1, -2), xr, passes)
     return (y.permute(0, 1, 3, 2, 4).reshape(b, s, h, p), st,
-            torch.exp(torch.cumsum(steps, 3)).permute(0, 1, 3, 2).reshape(b, s, h))
+            torch.exp(cum).permute(0, 1, 3, 2).reshape(b, s, h))
 
 
 def oracle_intra_chunk(x, dt, a, bmat, cmat, *, chunk):
@@ -280,19 +377,24 @@ def oracle_intra_chunk(x, dt, a, bmat, cmat, *, chunk):
     return y.reshape(b, s, h, p), st, torch.exp(cum).reshape(b, s, h)
 
 
-def models_dt_and_a(heads=None, seed=23):
+def models_dt_and_a(heads=None, seed=23, n=16, of_heads=50, shared=True):
     """x, dt, a, B, C (numpy, float32) at the serving width with dt and
     A as the model at init feeds them (dt = softplus(normal), A =
-    -linspace(1, 16, 50)): B=1, S=256, P=64, N=16, B and C shared by the
-    heads; cum reaches about -1900 within a chunk of 128."""
+    -linspace(1, 16, of_heads)): B=1, S=256, P=64, N=16 (hymba's 50
+    heads; mamba2-780m's are N=128 and 48 heads), B and C shared by the
+    heads (or, without ``shared``, drawn per head); cum reaches about
+    -1900 within a chunk of 128."""
     rng = np.random.default_rng(seed)
-    b, s, p, n = 1, 256, 64, 16
-    a = -np.linspace(1.0, 16.0, 50).astype(np.float32)
+    b, s, p = 1, 256, 64
+    a = -np.linspace(1.0, 16.0, of_heads).astype(np.float32)
     if heads is not None:
         a = a[heads]
     h = len(a)
     x = rng.standard_normal((b, s, h, p)).astype(np.float32)
     dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
+    if not shared:
+        bm, cm = (rng.standard_normal((b, s, h, n)).astype(np.float32) for _ in range(2))
+        return x, dt, a, bm, cm
     b1, c1 = (rng.standard_normal((b, s, 1, n)).astype(np.float32) for _ in range(2))
     bm, cm = (np.ascontiguousarray(np.broadcast_to(t, (b, s, h, n))) for t in (b1, c1))
     return x, dt, a, bm, cm
@@ -396,6 +498,84 @@ def test_one_tf32_pass_would_miss_the_tolerance():
     assert err[3] <= ATOL < err[1]
 
 
+MAMBA2_HEADS = [0, 15, 31, 47]  # 4 of mamba2-780m's 48, A from -1 to -16
+
+
+@pytest.mark.parametrize("seed,shared", [(23, True), (5, True), (23, False)])
+def test_wide_kernel_arithmetic_on_mamba2s_dt_and_a(seed, shared):
+    """mamba2-780m's state, head dim and chunk (N=128, P=64, chunk 128)
+    with dt and A as the model at init feeds them, on 4 of its heads: the
+    wide kernel's arithmetic (its segment sums, three TF32 passes, every
+    product's 16 k-steps added in float32) against the float64 oracle and
+    the plain version at the unchanged atol. With B and C shared by the
+    heads, as the model passes them, the kernel computes C B^T once for
+    its heads; given per head, once a head: the arithmetic is the same."""
+    arrs = models_dt_and_a(heads=MAMBA2_HEADS, seed=seed, n=128, of_heads=48,
+                           shared=shared)
+    tx = [torch.from_numpy(t) for t in arrs]
+    assert route(128, 128, 64) == "tensor_cores_wide"
+    oracle = oracle_intra_chunk(*tx, chunk=128)
+    got = emulate_tensor_core_kernel(*tx, chunk=128, wide=True)
+    plain = ssd_intra_chunk_ref(*tx, chunk=128)
+    errs = [float((g.double() - w).abs().max()) for g, w in zip(got, oracle)]
+    print(f"wide kernel's arithmetic against the oracle: y {errs[0]:.3g}, st "
+          f"{errs[1]:.3g}, dec {errs[2]:.3g} (|y| up to {float(oracle[0].abs().max()):.1f})")
+    assert float(oracle[0].abs().max()) > 100.0
+    for g, w, pl in zip(got, oracle, plain):
+        close(g, w.numpy())
+        close(g, pl.numpy())
+
+
+def test_wide_kernel_sums_its_k_steps_in_float32():
+    """The wide order (truncated passes, float32 sums of
+    k-steps) moves y by less than half the tolerance from the N <= 32
+    kernel's passes summed exactly, and one TF32 pass misses the
+    tolerance at N=128 by far (a few hundred times), so the three stay."""
+    arrs = models_dt_and_a(heads=MAMBA2_HEADS, seed=5, n=128, of_heads=48)
+    tx = [torch.from_numpy(t) for t in arrs]
+    oracle = oracle_intra_chunk(*tx, chunk=128)[0]
+    wide = emulate_tensor_core_kernel(*tx, chunk=128, wide=True)[0]
+    exact = emulate_tensor_core_kernel(*tx, chunk=128)[0]
+    one = emulate_tensor_core_kernel(*tx, chunk=128, wide=True, passes=1)[0]
+    moved = float((wide - exact).abs().max())
+    one_err = float((one.double() - oracle).abs().max())
+    print(f"float32 k-step sums move y by {moved:.3g}; one pass misses the "
+          f"oracle by {one_err:.3g}")
+    assert moved < ATOL / 2
+    assert one_err > 100 * ATOL
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 128, 2, 64, 128, 128),
+    (2, 96, 2, 32, 48, 48),    # a partial last slice of 32 state columns
+    (1, 80, 3, 12, 36, 40),    # chunk not a multiple of 16
+])
+def test_wide_kernel_arithmetic_matches_reference_kernel(b, s, h, p, n, chunk):
+    jx, tx = mk(s + 5 * h + n, b, s, h, p, n)
+    assert route(chunk, n, p) == "tensor_cores_wide"
+    want = jax_intra(*jx, chunk=chunk, interpret=True)
+    for g, w in zip(emulate_tensor_core_kernel(*tx, chunk=chunk, wide=True), want):
+        close(g, w)
+
+
+def test_wide_kernel_lines_are_the_segment_sums():
+    """The wide kernel's sub-block sums give the plain version's seg, cum
+    and decays to the chunk's end to float32's rounding, at a chunk that
+    is not a multiple of 16 too."""
+    rng = np.random.default_rng(41)
+    for cl in (128, 40):
+        steps = torch.from_numpy(-rng.uniform(0.0, 16.0, (3, cl)).astype(np.float32))
+        seg, cum, end = wide_kernel_lines(steps)
+        want = segsum(steps.double(), 1)
+        tri = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(seg), tri)
+        torch.testing.assert_close(seg[tri].double(), want[tri], rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(cum.double(), torch.cumsum(steps.double(), 1),
+                                   rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(end.double(), decay_to_end(steps.double(), 1),
+                                   rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("v,hi", [
     (1.0 + 2.0**-11, 1.0 + 2.0**-10),        # a tie rounds away from zero
     (-(1.0 + 2.0**-11), -(1.0 + 2.0**-10)),
@@ -433,8 +613,15 @@ def test_tf32_split_reconstructs_v():
     (16, 4, 4, "tensor_cores"),
     (256, 16, 64, "cuda_cores"),     # chunk above 128
     (128, 16, 128, "cuda_cores"),    # P above 64
-    (128, 64, 64, "cuda_cores"),     # N above 32
-    (128, 128, 64, "cuda_cores"),    # mamba2-780m's state, N=128
+    (128, 64, 64, "tensor_cores_wide"),   # N above 32
+    (128, 128, 64, "tensor_cores_wide"),  # mamba2-780m's state, N=128
+    (128, 36, 64, "tensor_cores_wide"),
+    (40, 44, 12, "tensor_cores_wide"),
+    (128, 256, 64, "cuda_cores"),    # N above 128
+    (128, 132, 64, "cuda_cores"),
+    (256, 128, 64, "cuda_cores"),    # chunk above 128 at N=128
+    (128, 128, 128, "cuda_cores"),   # P above 64 at N=128
+    (128, 126, 64, "cuda_cores"),    # N not a multiple of 4
     (20, 6, 10, "cuda_cores"),       # P and N not multiples of 4
     (32, 16, 10, "cuda_cores"),
     (32, 6, 16, "cuda_cores"),
@@ -453,6 +640,24 @@ def test_every_tensor_core_shape_fits_a_block():
                for n in range(4, 33, 4) for p in range(4, 65, 4)) == 148_352
 
 
+def test_every_wide_shape_fits_a_block():
+    """The wrapper's count of the wide kernel's shared memory: 218,176 B at
+    mamba2-780m's shape (chunk 128, N=128, P=64), the most of any shape
+    it takes, below an H100 block's 232,448 B; one CTA an SM (two would
+    need 233,472 B and more)."""
+    assert wide_smem_bytes(128, 128, 64) == 218_176
+    sizes = [wide_smem_bytes(c, n, p) for c in range(1, 129)
+             for n in range(36, 129, 4) for p in range(4, 65, 4)]
+    assert max(sizes) == 218_176 <= 232_448
+    assert 2 * (218_176 + 1024) > 233_472
+    # B whole, two C slices, two x stages and dt, G's 36 blocks, the lines
+    floats = (128 * 132 + 2 * 128 * 36 + 2 * 128 * 68 + 2 * 128 + 36 * 256
+              + 3 * 128 + 64 + 16 + 8 * 136)
+    assert wide_smem_bytes(128, 128, 64) == 4 * floats
+    # N pads to a slice of 32: N = 100 takes what N = 128 does
+    assert wide_smem_bytes(128, 100, 64) == wide_smem_bytes(128, 128, 64)
+
+
 def _serving_operands():
     rng = np.random.default_rng(37)
     x = torch.from_numpy(rng.standard_normal((2, 128, 3, 64)).astype(np.float32))
@@ -468,6 +673,36 @@ def test_operands_as_the_model_passes_them_are_accepted():
     assert ops["bmat"].stride(2) == 0
     check_operands("tensor_cores", **ops)
     check_operands("cuda_cores", **ops)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (None, None),
+    ("misaligned_row", "stride 130 of dim 1 is 520 bytes, not a multiple of 16"),
+    ("misaligned_base", "base pointer .* not 16-byte aligned"),
+    ("last_dim", "the last dim of bmat must be contiguous"),
+    ("dtype", "cmat has dtype torch.float64"),
+])
+def test_the_wide_route_checks_operands_as_the_other(bad, match):
+    """mamba2-780m's operands (N=128, B and C stride-0 over the heads)
+    pass the wide route's checks; what its 16-byte copies cannot take is
+    refused as on the other tensor-core route."""
+    ops = _serving_operands()
+    bm = torch.zeros((2, 128, 128))
+    if bad == "misaligned_row":      # rows of 130 floats, 520 bytes apart
+        bm = torch.zeros((2, 128, 130))[:, :, :128]
+    elif bad == "misaligned_base":
+        bm = torch.zeros(bm.numel() + 1)[1:].view(bm.shape)
+    elif bad == "last_dim":
+        bm = bm.transpose(1, 2).contiguous().transpose(1, 2)
+    ops["bmat"] = bm[:, :, None, :].expand(2, 128, 3, 128)
+    ops["cmat"] = torch.zeros((2, 128, 3, 128), dtype=torch.float64 if bad == "dtype"
+                              else torch.float32)
+    assert route(128, 128, 64) == "tensor_cores_wide"
+    if bad is None:
+        check_operands("tensor_cores_wide", **ops)
+        return
+    with pytest.raises(TypeError if bad == "dtype" else ValueError, match=match):
+        check_operands("tensor_cores_wide", **ops)
 
 
 @pytest.mark.parametrize("bad,match", [
